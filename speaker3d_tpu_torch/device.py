@@ -1,0 +1,25 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes a ``device`` argument whose default is ``"cuda"``.
+There is no silent fall-back: asking for CUDA on a machine without a CUDA
+device raises, and the CPU is used only when the caller names it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+    """``device`` (str or torch.device) -> torch.device; raises when CUDA is
+    asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' explicitly to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,71 @@
+"""Batched embedding extraction: wav batch -> fbank -> backbone.
+
+The counterpart of ``speaker3d_tpu/eval/embedding.py``. The returned
+callable is the device hot path of diarization: PCM16 decode, the fbank
+kernel, mean-norm over time, the backbone, float32 out.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Mapping, Optional
+
+import torch
+
+from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+
+# The JAX package's precision names. "high" (what the diarization CLI passes)
+# and "float32" keep full fp32 products; None lets cuDNN and cuBLAS use TF32.
+_TF32 = {"high": False, "float32": False, "highest": False, None: True}
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: Optional[str]):
+    """Set TF32 for cuDNN convolutions and cuBLAS matmuls for the block and
+    restore both flags afterwards."""
+    if precision not in _TF32:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{sorted(k for k in _TF32 if k)} or None")
+    cudnn, cuda = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, cuda.allow_tf32)
+    cudnn.allow_tf32 = cuda.allow_tf32 = _TF32[precision]
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cuda.allow_tf32 = saved
+
+
+def build_embedding_fn(model: torch.nn.Module,
+                       state: Optional[Mapping[str, torch.Tensor]] = None, *,
+                       device=DEFAULT_DEVICE, precision: Optional[str] = "float32",
+                       mean_norm: bool = True, sample_rate: int = 16000,
+                       num_mel_bins: int = 80) -> Callable:
+    """Return ``embed(wavs) -> [B, D] float32 tensor on ``device````.
+
+    ``state``: a state_dict loaded into ``model`` with ``strict=True`` (None
+    keeps the model's weights). ``wavs``: [B, L] float32, or int16 PCM
+    decoded as k/32768; a tensor or array, moved to ``device`` if needed.
+    ``precision``: "high"/"float32"/"highest" run fp32 (TF32 off), None
+    allows TF32."""
+    dev = resolve_device(device)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    model.to(dev).eval()
+    fbank = KaldiFbank(FbankConfig(sample_rate=sample_rate,
+                                   num_mel_bins=num_mel_bins),
+                       mean_norm=mean_norm, device=dev)
+    if precision not in _TF32:
+        raise ValueError(f"unknown precision {precision!r}")
+
+    def embed(wavs):
+        with torch.inference_mode(), matmul_precision(precision):
+            wavs = torch.as_tensor(wavs, device=dev)
+            if wavs.dtype == torch.int16:
+                # k/32768 is a power-of-two scale: bitwise equal to the host
+                # float conversion of the same PCM16 samples
+                wavs = wavs.to(torch.float32) * (1.0 / 32768)
+            feats = fbank(wavs.to(torch.float32))
+            return model(feats).to(torch.float32)
+
+    return embed

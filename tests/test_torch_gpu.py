@@ -1,0 +1,114 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and nvcc and skips without them. The file
+imports neither JAX nor the JAX package, so it runs on a machine that has
+only the port's dependencies:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py sets JAX up.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from speaker3d_tpu_torch.eval.embedding import build_embedding_fn, matmul_precision
+from speaker3d_tpu_torch.models.eres2netv2 import BasicBlockERes2NetV2, ERes2NetV2
+from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    return torch.device("cuda")
+
+
+def _randomize(module, seed):
+    """Seeded weights and BN statistics that keep activations alive."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name.endswith("running_var") or (name.endswith(".weight")
+                                                and t.ndim == 1):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif name.endswith("running_mean") or name.endswith(".bias"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        * (2 / t[0].numel()) ** 0.5)
+    return module.eval()
+
+
+@pytest.mark.parametrize("n", [400, 24000, 48123])
+def test_fbank_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    wav = torch.from_numpy((rng.standard_normal((5, n)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    fb = KaldiFbank(FbankConfig(), device=cuda)
+    kw = dict(frame_length=400, frame_shift=160)
+    launches = fk.fbank_features.launches
+    with matmul_precision("float32"):
+        got = fk.fbank_features(wav, fb._B, fb._mel, **kw)
+        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == launches + 1
+    assert got.shape == want.shape == (5, 1 + (n - 400) // 160, 80)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cin,planes,stride,f,t", [
+    (16, 16, 1, 21, 37),    # shortcut conv, ragged tiles
+    (16, 16, 2, 21, 37),    # stride 2 read in the kernel
+    (32, 16, 1, 8, 16),     # identity shortcut, one exact tile
+    (64, 64, 1, 80, 50),    # the 17.8M model's layer1 widths (w = 26)
+    (128, 128, 2, 80, 50),  # its layer2 entry (w = 52)
+])
+def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
+    blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride), cin + f)
+    blk.to(cuda)
+    folded = blk.folded()
+    x = torch.rand((3, cin, f, t), generator=torch.Generator().manual_seed(t)
+                   ).to(cuda)
+    launches = rk.res2_block.launches
+    with matmul_precision("float32"):
+        got = rk.res2_block(x, folded, stride)
+        want = rk.res2_block_plain(x, folded, stride)
+    torch.cuda.synchronize()
+    assert rk.res2_block.launches == launches + 1
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_embed_call_launches_both_kernels(cuda):
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 0)
+    embed = build_embedding_fn(model, device=cuda, precision="high")
+    wavs = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (4, 24000)) * 0.1).astype(np.float32))
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    out = embed(wavs)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == k1 + 1
+    assert rk.res2_block.launches == k2 + 4  # layer1 (2) + layer2 (2)
+    assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
+    cpu = build_embedding_fn(model, device="cpu", precision="high")(wavs)
+    torch.testing.assert_close(out.cpu(), cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_device_nnchain_matches_host(cuda):
+    from speaker3d_tpu_torch.diar.ahc_nnchain import (
+        device_linkage_labels, linkage_labels)
+
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((6, 64))
+    x = (centers[rng.integers(0, 6, 400)]
+         + 0.1 * rng.standard_normal((400, 64))).astype(np.float32)
+    part = lambda lab: sorted(tuple(np.flatnonzero(lab == g)) for g in set(lab))
+    assert part(device_linkage_labels(x, 0.4, device=cuda)) == part(
+        linkage_labels(x, 0.4))
