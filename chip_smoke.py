@@ -7,21 +7,31 @@ Run from the root of a checkout on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build both CUDA kernels from ``speaker3d_tpu_torch/csrc`` (one nvcc each,
+2. build every CUDA kernel from ``speaker3d_tpu_torch/csrc`` (one nvcc each,
    in parallel);
-3. K1 (fbank) on [64, 24000] against its plain version on the card, with
-   the Kaldi-oracle thresholds of the CPU tests; kernel and plain times;
-4. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
-   (B = 64, 1.5 s chunks) against its plain version, fp32 with TF32 off,
-   rtol = atol = 1e-3; times;
-5. the port's diarization CLI on a seeded synthetic 120 s three-speaker
+3. the port's diarization CLI on a seeded synthetic 120 s three-speaker
    conversation, once with the default ERes2NetV2 w24s4ep4 and once with the
    17.8M ERes2NetV2, both on seeded random weights saved as reference-named
    checkpoints; launch counts (K1 in both runs, K2 7x per embed batch in the
-   17.8M run and never in the other) and one batch of embeddings against the
-   plain functions on the card (cosine >= 0.9999);
-6. the device NN-chain AHC on 5,000 well-separated embeddings against the
+   17.8M run and never in the other) and the pad length L of every embed
+   call; then, at every L of those calls and at 24,000 (1.5 s), one batch
+   of 64 windows embedded through the kernels against the plain functions
+   on the card (cosine >= 0.9999);
+4. K1 (fbank) on [64, L] for each of those L against its plain version on
+   the card, with the Kaldi-oracle thresholds of the CPU tests; kernel and
+   plain times;
+5. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
+   at each L (B = 64) against its plain version, fp32 with TF32 off,
+   rtol = atol = 1e-3; times;
+6. K3 (the five layout probes): the probe tool's own run on the card, which
+   launches every probe, holds it against its plain version (a-c bit-exact,
+   d and e within 2^-8 max|want| and unequal in at most 1% of elements) and
+   times it; then plain and library times;
+7. the device NN-chain AHC on 5,000 well-separated embeddings against the
    host float64 NN-chain partition.
+
+The kernels line gives K1's and K2's times at the L of the file's chunk
+calls (the path's most frequent batch), and every L in ``shapes``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events (median after warm-up) on the card
@@ -32,7 +42,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -45,6 +54,7 @@ FS = 16000
 BATCH = 64
 CHUNK = 24000                     # 1.5 s at 16 kHz
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_TC_FLOPS = 989e12       # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MODEL_W24 = "iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common"
 MODEL_17M = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
@@ -55,26 +65,14 @@ def log(*a):
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of one call of ``fn`` on the current stream."""
-    import torch
+    """Median milliseconds of one call of ``fn`` (the port's timer)."""
+    from speaker3d_tpu_torch.device import cuda_ms as timer
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return timer(fn, warmup, iters)
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -126,7 +124,11 @@ def _test_waves(rng, batch: int, n: int):
     return wav.astype(np.float32)
 
 
-def phase_k1() -> dict:
+def _at(rows: list, main_len: int) -> list:
+    return [r for r in rows if r["L"] == main_len]
+
+
+def phase_k1(lengths, main_len: int) -> dict:
     import torch
 
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
@@ -135,36 +137,49 @@ def phase_k1() -> dict:
 
     cfg = FbankConfig()
     fb = KaldiFbank(cfg, device="cuda")
-    wav = torch.from_numpy(_test_waves(np.random.default_rng(0), BATCH,
-                                       CHUNK)).cuda()
     kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
-    with torch.inference_mode(), matmul_precision("float32"):
-        got = fk.fbank_cuda(wav, fb._B, fb._mel, **kw)
-        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
-        torch.cuda.synchronize()
-        err = fbank_oracle_check(got.cpu().numpy(), want.cpu().numpy(),
-                                 "K1 vs plain")
-        ms = cuda_ms(lambda: fk.fbank_cuda(wav, fb._B, fb._mel, **kw))
-        plain = cuda_ms(lambda: fk.fbank_plain(wav, fb._B, fb._mel, **kw))
-    T, M = got.shape[1], got.shape[2]
-    n_bytes = 4 * (wav.numel() + fb._B.numel() + fb._mel.numel() + got.numel())
-    flops = 2 * BATCH * T * (cfg.frame_length * 2 * fk._NB + fk._NB * M)
-    b, by = bound_ms(n_bytes, flops)
-    log(f"[K1] out {tuple(got.shape)} max_abs_err {err:.3g} kernel {ms:.4f} "
-        f"ms plain {plain:.4f} ms bound {b:.4f} ms ({by})")
+    rng = np.random.default_rng(0)
+    rows = []
+    for L in lengths:
+        wav = torch.from_numpy(_test_waves(rng, BATCH, L)).cuda()
+        with torch.inference_mode(), matmul_precision("float32"):
+            got = fk.fbank_cuda(wav, fb._B, fb._mel, **kw)
+            want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+            torch.cuda.synchronize()
+            err = fbank_oracle_check(got.cpu().numpy(), want.cpu().numpy(),
+                                     f"K1 vs plain at L = {L}")
+            ms = cuda_ms(lambda: fk.fbank_cuda(wav, fb._B, fb._mel, **kw))
+            plain = cuda_ms(lambda: fk.fbank_plain(wav, fb._B, fb._mel, **kw))
+        T, M = got.shape[1], got.shape[2]
+        n_bytes = 4 * (wav.numel() + fb._B.numel() + fb._mel.numel()
+                       + got.numel())
+        flops = 2 * BATCH * T * (cfg.frame_length * 2 * fk._NB + fk._NB * M)
+        b, by = bound_ms(n_bytes, flops)
+        log(f"[K1 L={L}] out {tuple(got.shape)} max_abs_err {err:.3g} kernel "
+            f"{ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by})")
+        rows.append({"L": L, "out": list(got.shape), "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b,
+                     "bound_by": by})
+    (top,) = _at(rows, main_len)
     return {"name": "fbank", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/fbank.cu",
             "replaces": "speaker3d_tpu/ops/pallas/fbank_kernel.py:38",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": None}
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # per launch on the [64, main_len] batch; every L in shapes
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "shapes": rows}
 
 
-# (name, Cin, planes, stride, input F, input T, blocks of this shape) of the
-# 17.8M model's layer1-2 at 1.5 s chunks (148 frames): 7 blocks per batch
-K2_SHAPES = [("layer1.0", 64, 64, 1, 80, 148, 1),
-             ("layer1.1", 128, 64, 1, 80, 148, 2),
-             ("layer2.0", 128, 128, 2, 80, 148, 1),
-             ("layer2.1", 256, 128, 1, 40, 74, 3)]
+def k2_shapes(frames: int) -> list:
+    """(name, Cin, planes, stride, input F, input T, blocks of this shape) of
+    the 17.8M model's layer1-2 at ``frames`` fbank frames: 7 blocks per
+    batch."""
+    half = (frames - 1) // 2 + 1  # after layer2.0's stride 2
+    return [("layer1.0", 64, 64, 1, 80, frames, 1),
+            ("layer1.1", 128, 64, 1, 80, frames, 2),
+            ("layer2.0", 128, 128, 2, 80, frames, 1),
+            ("layer2.1", 256, 128, 1, 40, half, 3)]
 
 
 def _random_block(cin, planes, stride, gen):
@@ -187,18 +202,23 @@ def _random_block(cin, planes, stride, gen):
     return blk.cuda().eval()
 
 
-def phase_k2() -> list:
+def phase_k2(lengths, main_len: int) -> dict:
     import torch
 
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig
     from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 
+    cfg = FbankConfig()
+    cases = [(L, *shape) for L in lengths for shape in k2_shapes(
+        1 + (L - cfg.frame_length) // cfg.frame_shift)]
     gen = torch.Generator().manual_seed(1)
+    gen_x = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, cin, planes, stride, f, t, count in K2_SHAPES:
+    for L, name, cin, planes, stride, f, t, count in cases:
         blk = _random_block(cin, planes, stride, gen)
         p = blk.folded()
-        x = torch.rand((BATCH, cin, f, t), generator=gen).cuda()
+        x = torch.rand((BATCH, cin, f, t), generator=gen_x, device="cuda")
         with torch.inference_mode(), matmul_precision("float32"):
             got = rk.res2_block_cuda(x, p, stride)
             want = rk.res2_block_plain(x, p, stride)
@@ -217,13 +237,93 @@ def phase_k2() -> list:
         # stride 2 needs only the even rows and columns of x
         n_in = x.numel() // (stride * stride)
         b, by = bound_ms(4 * (n_in + got.numel() + n_weights), flops)
-        log(f"[K2 {name}] x {tuple(x.shape)} -> {tuple(got.shape)} max_abs_err "
-            f"{err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} "
-            f"ms ({by}) {flops / ms / 1e9:.1f} TFLOP/s")
-        rows.append({"shape": name, "blocks": count, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": b,
-                     "bound_by": by})
-    return rows
+        log(f"[K2 L={L} {name}] x {tuple(x.shape)} -> {tuple(got.shape)} "
+            f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
+            f"bound {b:.4f} ms ({by}) {flops / ms / 1e9:.1f} TFLOP/s")
+        rows.append({"L": L, "shape": name, "x": list(x.shape),
+                     "blocks": count, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b, "bound_by": by})
+        del x, got, want
+    top = _at(rows, main_len)
+    return {"name": "res2_block", "route": "cuda",
+            "source": "speaker3d_tpu_torch/csrc/res2_block.cu",
+            "replaces": "speaker3d_tpu/ops/pallas/res2_block_kernel.py:143",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # per [64, main_len] embed batch: the 7 launches of layer1-2
+            "ms": sum(r["blocks"] * r["ms"] for r in top),
+            "plain_ms": sum(r["blocks"] * r["plain_ms"] for r in top),
+            "bound_ms": sum(r["blocks"] * r["bound_ms"] for r in top),
+            "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                             for r in top) else "bytes"),
+            "library_ms": None, "shapes": rows}
+
+
+def phase_k3() -> dict:
+    import torch.nn.functional as nnf
+
+    from speaker3d_tpu_torch.tools import probe_ops as po
+
+    # the probe tool's own path: it launches every probe, holds it against
+    # its plain version and times it; counts set to 0 just before, read
+    # just after
+    for probe in po.PROBES.values():
+        probe.run.launches = 0
+    results = []
+    if po.main([], results) != 0:
+        raise AssertionError("K3: the probe tool reported a failed probe")
+    launches = {key: probe.run.launches for key, probe in po.PROBES.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"K3: a probe was not launched: {launches}")
+
+    by_key = {r.probe.key: r for r in results}
+    x, w9 = by_key["d"].args
+    w2 = by_key["e"].args[1]
+    f, t, w = x.shape
+    # one PyTorch call per probe that computes the same function
+    x_nchw = x.permute(2, 0, 1).unsqueeze(0)                  # [1, W, F, T]
+    conv_w = w9.view(3, 3, w, w).permute(3, 2, 0, 1).contiguous()
+    library = {"a": lambda: x[:, 1:-1] * 2,
+               "b": lambda: nnf.pad(x[:, :-2], (0, 0, 2, 0)),
+               "c": lambda: x * 2,
+               "d": lambda: nnf.conv2d(x_nchw, conv_w, padding=(1, 0)),
+               "e": None}
+    # bytes each function must move (inputs read once, outputs written
+    # once; a reads only rows 1..T-2, b only rows 0..T-3) and its operations
+    elt = 2  # bf16
+    n_x, n_mid = f * t * w, f * (t - 2) * w
+    work = {"a": (elt * 2 * n_mid, n_mid, PEAK_FP32_FLOPS),
+            "b": (elt * (n_mid + n_x), 0, PEAK_FP32_FLOPS),
+            "c": (elt * 2 * n_x, n_x, PEAK_FP32_FLOPS),
+            "d": (elt * (n_x + w9.numel() + n_mid), 2 * n_mid * 9 * w,
+                  PEAK_BF16_TC_FLOPS),
+            "e": (elt * (2 * n_x + w2.numel()),
+                  2 * n_x * 2 * w + n_x, PEAK_BF16_TC_FLOPS)}
+    rows = []
+    for key, r in by_key.items():
+        plain_ms = cuda_ms(lambda: r.probe.plain(*r.args))
+        lib_ms = cuda_ms(library[key]) if library[key] else None
+        b, by = bound_ms(*work[key])
+        log(f"[K3 {key}] {r.probe.name}: out {tuple(r.got.shape)} max_abs_err "
+            f"{r.max_abs_err:.3g} kernel {r.ms:.4f} ms plain {plain_ms:.4f} "
+            f"ms library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+            f"bound {b:.6f} ms ({by}); launches in the tool's run "
+            f"{launches[key]}")
+        rows.append({"name": key, "ms": r.ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b, "bound_by": by,
+                     "max_abs_err": r.max_abs_err, "launches": launches[key]})
+    return {"name": "probe_ops", "route": "cuda",
+            "source": "speaker3d_tpu_torch/csrc/probe_ops.cu",
+            "replaces": "tools/probe_mosaic_ops.py:27",
+            "launches": sum(launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # the five probes, one launch each
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                         else "operations"),
+            # no one call computes all five (each row has its own)
+            "library_ms": None, "shapes": rows}
 
 
 def synth_conversation(seconds: float = 120.0, seed: int = 0) -> np.ndarray:
@@ -322,11 +422,24 @@ def phase_pipeline(work: str) -> dict:
     for seed, model_id in enumerate((MODEL_W24, MODEL_17M)):
         _save_checkpoint(model_id, models, seed)
 
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+
+    # the pad length L of every embed call: (chunks, L) per call
+    pad_lens = []
+    emb_extraction = DiarizationPipeline.do_emb_extraction
+
+    def recording(self, chunks, wav_1d):
+        out = emb_extraction(self, chunks, wav_1d)
+        pad_lens.append((len(chunks), self.last_pad_len))
+        return out
+
     # the main path: both model ids through the CLI, counts read after each
+    DiarizationPipeline.do_emb_extraction = recording
     fk.fbank_features.launches = 0
     rk.res2_block.launches = 0
     counts, stage = {}, {}
     for model_id in (MODEL_W24, MODEL_17M):
+        pad_lens.clear()
         k1_0, k2_0 = fk.fbank_features.launches, rk.res2_block.launches
         out_dir = os.path.join(work, model_id.split("/")[-1])
         t0 = time.perf_counter()
@@ -346,9 +459,17 @@ def phase_pipeline(work: str) -> dict:
             lines = f.read().splitlines()
         stage[model_id] = {"cli_wall_s": wall, "rtf": meta["rtf"],
                            "segments": len(lines),
-                           "speakers": len({ln.split()[7] for ln in lines})}
+                           "speakers": len({ln.split()[7] for ln in lines}),
+                           "embed_calls_chunks_pad_len": list(pad_lens)}
         log(f"[pipeline {model_id}] launches K1 {counts[model_id][0]} K2 "
             f"{counts[model_id][1]}; {json.dumps(stage[model_id])}")
+        for n_chunks, pad_len in pad_lens:
+            log(f"[pipeline {model_id}] embed call: {n_chunks} chunks padded "
+                f"to L = {pad_len} samples")
+            if pad_len % CHUNK:
+                raise AssertionError(f"pad length {pad_len} is not a multiple "
+                                     f"of {CHUNK}")
+    DiarizationPipeline.do_emb_extraction = emb_extraction
     k1_total = fk.fbank_features.launches
     k2_total = rk.res2_block.launches
     (k1_w, k2_w), (k1_m, k2_m) = counts[MODEL_W24], counts[MODEL_17M]
@@ -357,12 +478,13 @@ def phase_pipeline(work: str) -> dict:
                              f"runs, K2 0 in w24s4ep4 and 7 per embed batch "
                              f"in the 17.8M run")
 
-    # per-stage times of file-level calls, and one batch of embeddings
-    # against the plain functions
-    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+    # the pad lengths the path gave its embed calls, and 1.5 s (a short
+    # file's): the kernels and the embed call are held at each of them
+    lengths = sorted({CHUNK} | {L for m in stage.values()
+                                for _, L in m["embed_calls_chunks_pad_len"]})
 
-    starts = np.arange(BATCH) * (len(wav) - CHUNK) // BATCH
-    batch = torch.from_numpy(np.stack([wav[s:s + CHUNK] for s in starts])).cuda()
+    # per-stage times of file-level calls, and at each L one batch of
+    # embeddings against the plain functions
     for model_id in (MODEL_W24, MODEL_17M):
         model = load_pretrained(model_id, models)
         embed = build_embedding_fn(model, device="cuda", precision="high")
@@ -378,38 +500,51 @@ def phase_pipeline(work: str) -> dict:
             stages.append(dict(pipe.last_stage_times))
         wall = walls[-1]
         stage[model_id].update(first_call_wall_s=walls[0],
+                               pad_len=pipe.last_pad_len,
                                first_call_stages_s=stages[0],
                                stages_s=stages[1], warm_wall_s=wall,
-                               warm_rtf=wall / (len(wav) / FS))
-        fb = KaldiFbank(FbankConfig(), device="cuda")
-        with torch.inference_mode(), matmul_precision("high"):
-            got = embed(batch)
-            want = _plain_embed(model, fb, batch)
-            embed_ms = cuda_ms(lambda: embed(batch), warmup=2, iters=10)
-            plain_embed_ms = cuda_ms(lambda: _plain_embed(model, fb, batch),
-                                     warmup=2, iters=10)
-            # the plain path runs every product as a torch op, so it counts
-            flops = _flops(lambda: _plain_embed(model, fb, batch))
-        cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
-        stage[model_id].update(chunks=len(pipe.last_chunks),
-                               min_cosine_kernel_vs_plain=float(cos.min()),
-                               embed_batch_ms=embed_ms,
-                               plain_embed_batch_ms=plain_embed_ms,
-                               embed_batch_gflop=flops / 1e9,
-                               embed_batch_fp32_bound_ms=(
-                                   flops / PEAK_FP32_FLOPS * 1e3))
+                               warm_rtf=wall / (len(wav) / FS),
+                               chunks=len(pipe.last_chunks))
         log(f"[pipeline {model_id}] first call {walls[0]:.3f} s (embed "
-            f"{stages[0]['embed']:.3f} s), warm {wall:.3f} s RTF "
+            f"{stages[0]['embed']:.3f} s, {len(pipe.last_chunks)} chunks "
+            f"padded to L = {pipe.last_pad_len}), warm {wall:.3f} s RTF "
             f"{wall / (len(wav) / FS):.5f} stages "
-            f"{json.dumps({k: round(v, 4) for k, v in pipe.last_stage_times.items()})} "
-            f"embed batch of {BATCH}: {embed_ms:.3f} ms (plain functions "
-            f"{plain_embed_ms:.3f} ms), {flops / 1e9:.1f} GFLOP, "
-            f"{flops / embed_ms / 1e9:.2f} TFLOP/s; min cosine kernel vs "
-            f"plain {float(cos.min()):.7f}")
-        if not bool(torch.isfinite(got).all()) or float(cos.min()) < 0.9999:
-            raise AssertionError(f"{model_id}: embeddings kernel vs plain "
-                                 f"min cosine {float(cos.min())}")
-    return {"k1": k1_total, "k2": k2_total, "stage": stage}
+            f"{json.dumps({k: round(v, 4) for k, v in pipe.last_stage_times.items()})}")
+        fb = KaldiFbank(FbankConfig(), device="cuda")
+        batches = stage[model_id]["embed_batch"] = {}
+        for L in lengths:
+            starts = np.arange(BATCH) * (len(wav) - L) // BATCH
+            batch = torch.from_numpy(
+                np.stack([wav[s:s + L] for s in starts])).cuda()
+            with torch.inference_mode(), matmul_precision("high"):
+                got = embed(batch)
+                want = _plain_embed(model, fb, batch)
+                embed_ms = cuda_ms(lambda: embed(batch), warmup=2, iters=10)
+                plain_ms = cuda_ms(lambda: _plain_embed(model, fb, batch),
+                                   warmup=2, iters=10)
+                # the plain path runs every product as a torch op, so it
+                # counts them all
+                flops = _flops(lambda: _plain_embed(model, fb, batch))
+            cos = float(torch.nn.functional.cosine_similarity(
+                got, want, dim=1).min())
+            batches[L] = {"ms": embed_ms, "plain_ms": plain_ms,
+                          "gflop": flops / 1e9,
+                          "fp32_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
+                          "min_cosine_kernel_vs_plain": cos}
+            log(f"[pipeline {model_id}] embed batch [{BATCH}, {L}]: "
+                f"{embed_ms:.3f} ms (plain functions {plain_ms:.3f} ms), "
+                f"{flops / 1e9:.1f} GFLOP, {flops / embed_ms / 1e9:.2f} "
+                f"TFLOP/s; min cosine kernel vs plain {cos:.7f}")
+            if not bool(torch.isfinite(got).all()) or cos < 0.9999:
+                raise AssertionError(f"{model_id}: embeddings kernel vs plain "
+                                     f"at L = {L}: min cosine {cos}")
+            del batch, got, want
+    main_len = stage[MODEL_W24]["pad_len"]
+    if stage[MODEL_17M]["pad_len"] != main_len:
+        raise AssertionError("the two model ids padded the same chunks "
+                             "differently")
+    return {"k1": k1_total, "k2": k2_total, "stage": stage,
+            "lengths": lengths, "main_len": main_len}
 
 
 def phase_nnchain() -> None:
@@ -448,27 +583,17 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     device = phase_device()
     phase_build()
-    k1 = phase_k1()
-    k2_rows = phase_k2()
     with tempfile.TemporaryDirectory(prefix="s3d_chip_smoke_") as work:
         pipe = phase_pipeline(work)
+    k1 = phase_k1(pipe["lengths"], pipe["main_len"])
+    k2 = phase_k2(pipe["lengths"], pipe["main_len"])
+    k3 = phase_k3()
     phase_nnchain()
 
     k1["launches"] = pipe["k1"]
-    k2 = {"name": "res2_block", "route": "cuda",
-          "source": "speaker3d_tpu_torch/csrc/res2_block.cu",
-          "replaces": "speaker3d_tpu/ops/pallas/res2_block_kernel.py:143",
-          "launches": pipe["k2"],
-          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
-          # per embed batch: the 7 launches of layer1-2, by shape
-          "ms": sum(r["blocks"] * r["ms"] for r in k2_rows),
-          "plain_ms": sum(r["blocks"] * r["plain_ms"] for r in k2_rows),
-          "bound_ms": sum(r["blocks"] * r["bound_ms"] for r in k2_rows),
-          "bound_by": ("operations" if all(r["bound_by"] == "operations"
-                                           for r in k2_rows) else "bytes"),
-          "library_ms": None, "shapes": k2_rows}
+    k2["launches"] = pipe["k2"]
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"]}))
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],
         "count": device["count"]}}), flush=True)

@@ -7,6 +7,8 @@ device raises, and the CPU is used only when the caller names it.
 
 from __future__ import annotations
 
+import statistics
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -23,3 +25,21 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median milliseconds of one call of ``fn`` on the current CUDA stream
+    (CUDA events around each call, after ``warmup`` untimed calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

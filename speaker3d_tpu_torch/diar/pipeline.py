@@ -12,10 +12,11 @@ Device notes:
   one index gather and fed straight into the embed call, so the host ships
   the audio once plus two int32 vectors per batch.
 - Every batch is padded to ``batch_size`` rows, and every chunk of a call
-  to the call's longest chunk. The JAX pipeline also pads the resident
-  waveform to a power-of-two count of slabs and rounds the chunk length up
-  to a multiple of chunk_dur; both bound XLA recompiles, which eager
-  PyTorch does not have, so both are left out.
+  is circle-padded to the pad length of the JAX pipeline: chunk_dur, or the
+  longest chunk rounded up to a multiple of chunk_dur. The JAX pipeline
+  also pads the resident waveform to a power-of-two count of slabs; the
+  gather reads only ``[start, start + len)``, so that padding changes no
+  result and is left out.
 - Embeddings stay on the device until the last batch is issued and come back
   in one copy.
 """
@@ -173,6 +174,7 @@ class DiarizationPipeline:
         # wire of the last upload: {'dtype', 'bytes'}
         self.last_wire = None
         self._resident = None  # (wav_1d, device tensor) of the last upload
+        self.last_pad_len = None  # L of the last do_emb_extraction call
         # wall-clock per stage of the last call: upload, vad, vad_post,
         # embed, cluster
         self.last_stage_times = {}
@@ -219,14 +221,17 @@ class DiarizationPipeline:
     def do_emb_extraction(self, chunks: Sequence[Sequence[float]], wav_1d):
         """Embed chunks gathered on the device from the resident waveform.
 
-        Every chunk is circle-padded to the longest chunk of the call, as
-        the reference toolkit does. (The JAX pipeline rounds that length up
-        to a multiple of chunk_dur to bound XLA recompiles; then one sliding
-        window that ``int(t * fs)`` rounds to chunk_dur + 1 sample pads every
-        chunk of the file to twice chunk_dur.)"""
+        Every chunk is circle-padded to L, as in the JAX pipeline:
+        ``L0 = int(chunk_dur * fs)``, and L = L0 when no chunk is longer, else
+        the longest chunk rounded up to a multiple of L0. So one sliding
+        window that ``int(t * fs)`` rounds to L0 + 1 samples pads every chunk
+        of the call to 2 * L0, and whole segments (.pairs.json) are padded to
+        a multiple of chunk_dur. ``last_pad_len`` keeps the call's L."""
+        L0 = int(self.chunk_dur * self.fs)
         bounds = [(int(st * self.fs), int(ed * self.fs)) for st, ed in chunks]
-        # an empty chunk counts as one zero sample, as in the reference
-        L = max([1] + [ed - st for st, ed in bounds])
+        max_len = max((ed - st for st, ed in bounds), default=L0)
+        L = L0 if max_len <= L0 else -(-max_len // L0) * L0
+        self.last_pad_len = L
         wav = self.resident_wav(wav_1d)
         bs = self.batch_size
         n = len(bounds)

@@ -26,7 +26,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = {"fbank": "fbank.cu", "res2_block": "res2_block.cu"}
+SOURCES = {"fbank": "fbank.cu", "res2_block": "res2_block.cu",
+           "probe_ops": "probe_ops.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

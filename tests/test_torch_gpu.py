@@ -18,6 +18,7 @@ from speaker3d_tpu_torch.models.eres2netv2 import BasicBlockERes2NetV2, ERes2Net
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
 from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
 from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+from speaker3d_tpu_torch.tools import probe_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -47,7 +48,8 @@ def _randomize(module, seed):
     return module.eval()
 
 
-@pytest.mark.parametrize("n", [400, 24000, 48123])
+# 48,000 and 120,000: pad lengths of the diarization path on a long file
+@pytest.mark.parametrize("n", [400, 24000, 48000, 48123, 120000])
 def test_fbank_kernel_matches_plain(cuda, n):
     rng = np.random.default_rng(n)
     wav = torch.from_numpy((rng.standard_normal((5, n)) * 0.1)
@@ -70,6 +72,9 @@ def test_fbank_kernel_matches_plain(cuda, n):
     (32, 16, 1, 8, 16),     # identity shortcut, one exact tile
     (64, 64, 1, 80, 50),    # the 17.8M model's layer1 widths (w = 26)
     (128, 128, 2, 80, 50),  # its layer2 entry (w = 52)
+    (64, 64, 1, 80, 298),   # layer1 at 3 s chunks (L = 48,000)
+    (128, 128, 2, 80, 748),  # layer2 entry at 7.5 s (L = 120,000)
+    (256, 128, 1, 40, 149),  # layer2 after the stride at 3 s chunks
 ])
 def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
     blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride), cin + f)
@@ -112,3 +117,15 @@ def test_device_nnchain_matches_host(cuda):
     part = lambda lab: sorted(tuple(np.flatnonzero(lab == g)) for g in set(lab))
     assert part(device_linkage_labels(x, 0.4, device=cuda)) == part(
         linkage_labels(x, 0.4))
+
+
+@pytest.mark.parametrize("key", list("abcde"))
+def test_probe_kernel_matches_plain(cuda, key):
+    probe = probe_ops.PROBES[key]
+    args = probe.args(probe_ops.make_inputs(cuda, seed=3))
+    launches = probe.run.launches
+    got = probe.run(*args)
+    want = probe.plain(*args)
+    torch.cuda.synchronize()
+    assert probe.run.launches == launches + 1
+    assert got.is_cuda and probe_ops.within_tolerance(key, got, want)

@@ -35,7 +35,8 @@ def test_package_has_the_slice_modules():
                  "ops.kernels.fbank_kernel", "ops.kernels.res2_block_kernel",
                  "models.eres2netv2", "compat.flax_convert", "eval.embedding",
                  "diar.vad", "diar.ahc_nnchain", "diar.cluster",
-                 "diar.pipeline", "cli.registry", "cli.infer_diarization"):
+                 "diar.pipeline", "cli.registry", "cli.infer_diarization",
+                 "tools.probe_ops"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -90,6 +91,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
+    from speaker3d_tpu_torch.tools import probe_ops
 
     model = ERes2NetV2(num_blocks=(1, 1, 1, 1), m_channels=8)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -98,8 +100,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         DiarizationPipeline(lambda w: w)
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_diarization.main(["--wav", "a.wav", "--out_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe_ops.main([])
     assert infer_diarization.get_args(
         ["--wav", "a.wav", "--out_dir", "o"]).device == "cuda"
     # asked for explicitly, the CPU works
     embed = build_embedding_fn(model, device="cpu")
     assert embed(torch.zeros((2, 8000))).shape == (2, 192)
+    assert probe_ops.main(["--device", "cpu"]) == 0

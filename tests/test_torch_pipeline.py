@@ -145,27 +145,48 @@ def test_device_gather_matches_jax_host_path(wire):
     assert np.array_equal(got, ref._emb_extraction_host(bounds, wav, L))
 
 
-@pytest.mark.parametrize("chunks", [
-    [[0.5, 4.5], [5.0, 5.6]],  # whole segments (.pairs.json)
-    "overshoot",               # a sliding window int() rounds to 1.5 s + 1
+def _overshoot_chunks():
+    """Three chunks, one of them a sliding window that ``int(t * FS)``
+    rounds to 1.5 s + 1 sample (VAD intervals start on sample times k / FS)."""
+    st = next(s for s in (k / FS for k in range(FS))
+              if int((s + 1.5) * FS) - int(s * FS) == int(1.5 * FS) + 1)
+    return [[0.0, 1.5], [st, st + 1.5], [2.0, 2.5]]
+
+
+@pytest.mark.parametrize("chunks,pad_len", [
+    ([[0.5, 4.5], [5.0, 5.6]], 72000),   # whole segments (.pairs.json)
+    ("overshoot", 48000),                # one window of 1.5 s + 1 sample
+    ([[0.2, 0.9], [2.0, 2.5]], 24000),   # every chunk shorter than 1.5 s
 ])
-def test_device_gather_pads_to_longest_chunk_like_reference(chunks):
-    """The reference circle-pads every chunk to the call's longest chunk;
-    the JAX pipeline rounds that up to a multiple of chunk_dur, which the
-    port leaves out."""
+def test_device_gather_pads_like_jax_pipeline(chunks, pad_len):
+    """Both pipelines circle-pad every chunk of a call to chunk_dur, or to
+    the longest chunk rounded up to a multiple of chunk_dur."""
     if chunks == "overshoot":
-        # VAD intervals start on sample times k / FS
-        st = next(s for s in (k / FS for k in range(FS))
-                  if int((s + 1.5) * FS) - int(s * FS) == int(1.5 * FS) + 1)
-        chunks = [[0.0, 1.5], [st, st + 1.5], [2.0, 2.5]]
+        chunks = _overshoot_chunks()
     wav = _pcm16_wav(int(6.0 * FS), seed=2)
     pipe = DiarizationPipeline(_identity, batch_size=4, device="cpu")
-    bounds = [(int(st * FS), int(ed * FS)) for st, ed in chunks]
-    longest = max(ed - st for st, ed in bounds)
     got = pipe.do_emb_extraction(chunks, wav)
-    # the JAX host path with the pad length given: slice, then circle_pad
-    want = JaxPipeline(_identity)._emb_extraction_host(bounds, wav, longest)
-    assert got.shape == (len(chunks), longest) and np.array_equal(got, want)
+    want = JaxPipeline(_identity, batch_size=4).do_emb_extraction(chunks, wav)
+    assert got.shape == (len(chunks), pad_len) and np.array_equal(got, want)
+    assert pipe.last_pad_len == pad_len
+
+
+def test_overshoot_embeddings_equal_jax(weights):
+    jm, variables = weights
+    wav = (np.random.default_rng(5).standard_normal(int(4.0 * FS)) * 0.1
+           ).astype(np.float32)
+    chunks = _overshoot_chunks()
+    jpipe = JaxPipeline(jax_embedding_fn(jm, variables, precision="high"),
+                        batch_size=4)
+    tpipe = DiarizationPipeline(
+        build_embedding_fn(port_model(variables, **SMALL_W24), device="cpu",
+                           precision="high"), batch_size=4, device="cpu")
+    want = jpipe.do_emb_extraction(chunks, wav)
+    got = tpipe.do_emb_extraction(chunks, wav)
+    assert tpipe.last_pad_len == 2 * int(1.5 * FS)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=3e-4,
+                               atol=3e-4)
 
 
 def test_gather_edges_equal_jax_gather():
