@@ -22,7 +22,9 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    plain times;
 5. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
    at each L (B = 64) against its plain version, fp32 with TF32 off,
-   rtol = atol = 1e-3; times;
+   rtol = atol = 1e-3 and max abs error <= 1e-4; times, the bound at the
+   3xTF32 tensor-core rate (the fp32 CUDA-core bound beside it) and the
+   share of the bound reached;
 6. K3 (the five layout probes): the probe tool's own run on the card, which
    launches every probe, holds it against its plain version (a-c bit-exact,
    d and e within 2^-8 max|want| and unequal in at most 1% of elements) and
@@ -55,6 +57,9 @@ BATCH = 64
 CHUNK = 24000                     # 1.5 s at 16 kHz
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12       # H100 SXM, bf16 on the tensor cores, dense
+PEAK_TF32_TC_FLOPS = 495e12       # H100 SXM, TF32 on the tensor cores, dense
+K2_TF32_PASSES = 3                # K2's fp32-accurate products: 3xTF32
+K2_MAX_ABS_ERR = 1e-4             # fp32 level (one TF32 pass: ~4e-3)
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MODEL_W24 = "iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common"
 MODEL_17M = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
@@ -214,7 +219,7 @@ def phase_k2(lengths, main_len: int) -> dict:
         1 + (L - cfg.frame_length) // cfg.frame_shift)]
     gen = torch.Generator().manual_seed(1)
     gen_x = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
+    rows, fp32_core = [], {}  # fp32-core bound per batch at each L: logged only
     for L, name, cin, planes, stride, f, t, count in cases:
         blk = _random_block(cin, planes, stride, gen)
         p = blk.folded()
@@ -225,34 +230,47 @@ def phase_k2(lengths, main_len: int) -> dict:
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+            if err > K2_MAX_ABS_ERR:
+                raise AssertionError(f"K2 {name} at L = {L}: max abs error "
+                                     f"{err:.3g} > {K2_MAX_ABS_ERR}")
             ms = cuda_ms(lambda: rk.res2_block_cuda(x, p, stride))
             plain = cuda_ms(lambda: rk.res2_block_plain(x, p, stride))
         w, cout = p.width, got.shape[1]
         pos = got.shape[0] * got.shape[2] * got.shape[3]
         flops = 2 * pos * (cin * 2 * w + 2 * 9 * w * w + 2 * w * cout
                            + (cin * cout if p.wsc is not None else 0))
-        n_weights = sum(v.numel() for v in (p.k_w1, p.b1, p.k_wc1, p.bc1,
-                                            p.k_wc2, p.bc2, p.k_w3, p.b3))
-        n_weights += p.k_wsc.numel() if p.k_wsc is not None else 0
+        n_weights = sum(v.numel() for v in (p.w1, p.b1, p.wc1, p.bc1,
+                                            p.wc2, p.bc2, p.w3, p.b3))
+        n_weights += p.wsc.numel() if p.wsc is not None else 0
         # stride 2 needs only the even rows and columns of x
         n_in = x.numel() // (stride * stride)
-        b, by = bound_ms(4 * (n_in + got.numel() + n_weights), flops)
+        n_bytes = 4 * (n_in + got.numel() + n_weights)
+        # the route's rate: each fp32 product is K2_TF32_PASSES TF32 products
+        b, by = bound_ms(n_bytes, K2_TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
+        b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
         log(f"[K2 L={L} {name}] x {tuple(x.shape)} -> {tuple(got.shape)} "
             f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
-            f"bound {b:.4f} ms ({by}) {flops / ms / 1e9:.1f} TFLOP/s")
+            f"bound {b:.4f} ms ({by}; 3xTF32) fp32-core bound {b32:.4f} ms; "
+            f"{b / ms:.1%} of the bound, {flops / ms / 1e9:.1f} TFLOP/s")
         rows.append({"L": L, "shape": name, "x": list(x.shape),
                      "blocks": count, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": b, "bound_by": by})
+        fp32_core[L] = fp32_core.get(L, 0.0) + count * b32
         del x, got, want
     top = _at(rows, main_len)
+    per_batch = {k: sum(r["blocks"] * r[k] for r in top)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[K2 per [{BATCH}, {main_len}] batch, 7 launches] kernel "
+        f"{per_batch['ms']:.3f} ms plain {per_batch['plain_ms']:.3f} ms bound "
+        f"{per_batch['bound_ms']:.3f} ms (3xTF32) fp32-core bound "
+        f"{fp32_core[main_len]:.3f} ms; "
+        f"{per_batch['bound_ms'] / per_batch['ms']:.1%} of the bound")
     return {"name": "res2_block", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/res2_block.cu",
             "replaces": "speaker3d_tpu/ops/pallas/res2_block_kernel.py:143",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # per [64, main_len] embed batch: the 7 launches of layer1-2
-            "ms": sum(r["blocks"] * r["ms"] for r in top),
-            "plain_ms": sum(r["blocks"] * r["plain_ms"] for r in top),
-            "bound_ms": sum(r["blocks"] * r["bound_ms"] for r in top),
+            **per_batch,
             "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                              for r in top) else "bytes"),
             "library_ms": None, "shapes": rows}

@@ -1,5 +1,6 @@
 // One BN-folded, inference-only ERes2NetV2 Res2 block (scale 2, no AFF) for
-// Hopper (sm_90a), fp32 on the CUDA cores, NCHW activations.
+// Hopper (sm_90a): every contraction on the tensor cores in 3xTF32, which is
+// as close as fp32 FMA, NCHW activations.
 //
 // Replaces the TPU kernel speaker3d_tpu/ops/pallas/res2_block_kernel.py
 // (_make_kernel with _conv3x3_hybrid, launched by res2_block_fused). Per
@@ -12,250 +13,568 @@
 //                                             BN's bias is in b3) or x itself
 //
 // with relu20 = Hardtanh(0, 20). Stride 2 reads the even rows and columns of x
-// inside the kernel (the reference's 1x1 stride-2 convs do the same).
+// inside the kernel (the reference's 1x1 stride-2 convs do the same). The
+// block touches device memory once for x (plus the halo that neighbouring
+// tiles share through L2) and once for out, as the TPU kernel does.
 //
-// What bounds it on the H100: the contractions. On the 17.8M model's path
-// (B = 64, 1.5 s) a layer1 block does ~39 GFLOP against ~0.8 GB of
-// activations in and out, above the fp32 ridge, so it is bound by fp32 FMA
-// throughput (fp32 is the path's dtype; a bf16 tensor-core variant is later
-// work).
+// What bounds it on the H100: operations. The path asks for fp32 results
+// (TF32 off), and one TF32 pass is ~4e-3 off on a 3x3 conv. 3xTF32 keeps
+// fp32-level error: a = a_b + a_s with a_b = rna_tf32(a), a_s = rna_tf32(a -
+// a_b), and a*b ~ a_s*b_b + a_b*b_s + a_b*b_b (the small cross terms first),
+// each an mma.sync.m16n8k8 TF32 product with fp32 accumulation. At 495 TFLOP/s
+// dense TF32 that is 165 TFLOP/s of fp32-accurate work: the 7 launches of one
+// [64, 48000] embed batch (574 GFLOP) are bound at ~3.5 ms by operations,
+// against ~2.2 ms for their bytes at 3.35 TB/s. mma.sync issues below the
+// dense TF32 peak that wgmma reaches, so this design's ceiling is higher.
 //
-// Design: the TPU kernel kept all of F in VMEM ([F, Tt+4, Cin]); at F = 80,
-// Cin = 128 that is ~1.5 MB, far above the 227 KB of shared memory a block
-// may use. So a block owns a TF x TT tile of output positions for one batch
-// row and all channels, and keeps in shared memory:
-//   - h over the tile with a +-2 halo in both axes ((TF+4) x (TT+4)), which
-//     the two chained 3x3 convs need, zeroed outside [0,F) x [0,T) — that
-//     recreates the convs' zero padding in both axes (the TPU kernel got F's
-//     from explicit zero rows and T's from a time mask);
-//   - y1 over the tile with a +-1 halo.
-// The halo of h is recomputed by neighbouring blocks instead of exchanged.
-// y1 is added into the second half of h in place (u = s2 + y1), and y2 is
-// written over the first half once y1 has consumed it, so h and y1 are the
-// block's only buffers. x is read from device memory (L2) at the halo
-// positions for the expand and again at the centre for the shortcut.
-// Each stage is the same register-tiled product: a warp takes RO output
-// channels x 32*RP positions, lanes on consecutive positions (shared-memory
-// reads conflict-free, weight reads warp-uniform), the 3x3 convs as nine
-// shifted taps over the shared tile (implicit im2col, nothing materialised).
-// Weights arrive K-major ([K][O]) from the wrapper's fold.
+// Design:
+// - Products. M = output positions (16 per m-tile), N = output channels (8 per
+//   n-tile), K = input channels, or taps x channels for the 3x3 convs. Each
+//   stage runs in rounds: warp w holds SLOTS = 2 units of one m-tile x up to
+//   NTW = 8 n-tiles (64 accumulators a lane, started at the bias), so one A
+//   fragment feeds up to 24 mma. conv1 and conv2 take one round, so their
+//   outputs may overwrite their inputs' planes.
+// - Weights are split and packed once, at fold time (the wrapper's
+//   fold_res2_block): K and N zero-padded to multiples of 8, each 8 x 8
+//   (k-step, n-tile) B fragment stored as 32 float4s in lane order (b0 big,
+//   b1 big, b0 small, b1 small). A round streams its n-tiles' fragments
+//   chunk by chunk into shared memory with cp.async (two buffers of 8 or 16
+//   KB, chunk c + 1 in flight while chunk c is multiplied), shared by all 16
+//   warps, and a lane reads a fragment with one conflict-free 16-byte load.
+//   A fragments are split in registers as they are loaded.
+// - Activations stay in shared memory, channel-major, each plane padded to a
+//   stride S = 8 (mod 16): an A fragment's lanes run over 8 positions (g) and
+//   4 channels (t), and t*S mod 32 is 0, 8, 16, 24, so its loads are free of
+//   bank conflicts. The 3x3 convs are implicit im2col: K runs across the
+//   nine taps (k = tap*w + c, padded from 9w = 234 to 240 at w = 26, 2.6%,
+//   and from 468 to 472 at w = 52, 0.9%), each k mapped to its shared-memory
+//   offset by a per-block table; padded k read a real element times a zero
+//   weight. x (the expand and the shortcut) is staged per chunk too: kx =
+//   1-4 k-steps of channels at the stage's positions, by coalesced loads
+//   (zero outside the image; stride 2 read here).
+// - Tile. A block owns tf x tt output positions of one batch row and all
+//   channels: s1 = h[:w] over a +-2 halo, u = h[w:] + y1 over +-1, then y1
+//   over s1's planes and y2 over u's. The expand computes both halves over
+//   +-2 in one pass over x where one round holds it (2w <= 64), else s1 over
+//   +-2 and s2 over +-1 (recompute 1.41x at 16 x 16 against 1.88x when both
+//   are at +-2). The launch (pick_geom) picks the tile per shape from {16 x
+//   16, 8 x 32} by the work its halos and ragged edges cost among the tiles
+//   whose shared memory fits (supported): 16 x 16 at F = 80 (w = 26),
+//   8 x 32 at F = 40 (w = 52). A block takes 219-232 KB of shared memory:
+//   one block of 16 warps per SM, at the 128 registers a thread may have; `build.build(verbose=True)`
+//   prints the spills. Most of the time goes to stalls spread over the
+//   stages (staging, barriers, epilogues), not to the mma.
 //
-// Plain C interface (bound with ctypes); every entry point returns
-// cudaGetLastError() right after its launch.
-
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RO = 8;   // output channels per thread
-constexpr int RP = 4;   // positions per lane (strided by 32)
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int SLOTS = 2;     // units (1 m-tile x NTW n-tiles) per warp per round
+constexpr int NTW = 8;       // n-tiles (8 channels each) per unit
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory one block may use
 
 __device__ __forceinline__ float relu20(float v) {
   return fminf(fmaxf(v, 0.f), 20.f);
 }
 
-// acc[i][j] += sum_{tap, c} Wt[(tap*C + c)*O + o0 + i] * src[c*plane + off(tap) + pb[j]]
-// for taps on an nf x nt grid with off = df*ldw + dt. Rows o >= O read the
-// last row (clamped) and are dropped by the caller.
-__device__ __forceinline__ void mm_acc(float (&acc)[RO][RP], int o0, int O,
-                                       const int (&pb)[RP],
-                                       const float* src, long plane, int C,
-                                       int nf, int nt, int ldw,
-                                       const float* __restrict__ Wt) {
-  int oi[RO];
-#pragma unroll
-  for (int i = 0; i < RO; ++i) oi[i] = min(o0 + i, O - 1);
-  for (int df = 0; df < nf; ++df)
-    for (int dt = 0; dt < nt; ++dt) {
-      const int off = df * ldw + dt;
-      const float* wk = Wt + (size_t)((df * nt + dt) * C) * O;
-      const float* s = src + off;
-#pragma unroll 2
-      for (int c = 0; c < C; ++c) {
-        float wv[RO], iv[RP];
-#pragma unroll
-        for (int i = 0; i < RO; ++i) wv[i] = __ldg(wk + oi[i]);
-#pragma unroll
-        for (int j = 0; j < RP; ++j) iv[j] = s[pb[j]];
-#pragma unroll
-        for (int i = 0; i < RO; ++i)
-#pragma unroll
-          for (int j = 0; j < RP; ++j) acc[i][j] = fmaf(wv[i], iv[j], acc[i][j]);
-        wk += O;
-        s += plane;
-      }
-    }
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[RO][RP]) {
-#pragma unroll
-  for (int i = 0; i < RO; ++i)
-#pragma unroll
-    for (int j = 0; j < RP; ++j) acc[i][j] = 0.f;
+// v = big + small + O(2^-22 |v|); big's low 13 bits are cleared, so v - big
+// is exact and the tensor cores see big as it is.
+__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v) & 0xffffe000u;
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// d += a * b, m16n8k8, TF32 in, fp32 accumulate. Lane (g, t) = (lane/4,
+// lane%4): a = {(g, t), (g+8, t), (g, t+4), (g+8, t+4)} of [row, k];
+// b = {(k t, n g), (k t+4, n g)}; d = {(g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1)} of [row, n].
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__host__ __device__ inline int round8(int n) { return (n + 7) / 8 * 8; }
+// Smallest plane stride >= n that is 8 (mod 16): 8 or 24 (mod 32).
+__host__ __device__ inline int plane(int n) { return (n + 7) / 16 * 16 + 8; }
+// Rounds of a stage: P positions (16 per m-tile) x NPt n-tiles, in units of
+// one m-tile x NTW n-tiles, SLOTS units per warp per round.
+__host__ __device__ inline int rounds(int P, int NPt) {
+  return ((P + 15) / 16 * ((NPt + NTW - 1) / NTW) + SLOTS * NWARPS - 1) /
+         (SLOTS * NWARPS);
 }
 
 struct Geom {
   int cin, w, cout, fin, tin, F, T, stride, tf, tt, has_sc;
+  int ew, ext, mw, mid, outp;  // s1 grid (tf+4) x ew, u grid (tf+2) x mw
+  int se, sm, so;              // plane strides of s1 (and staged x), u, y1/y2
+  int kp9, kp2;                // K of the 3x3 convs and the project, padded
+  int bq;                      // float4 per staged-B buffer (two buffers)
+  int kx;                      // k-steps (8 channels each) of x per staged chunk
 };
 
-__global__ void __launch_bounds__(THREADS)
-res2_block_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ wc1,
-                  const float* __restrict__ bc1, const float* __restrict__ wc2,
-                  const float* __restrict__ bc2, const float* __restrict__ w3,
-                  const float* __restrict__ b3, const float* __restrict__ wsc,
-                  float* __restrict__ out, Geom g) {
-  extern __shared__ float smem[];
-  const int W = g.w, W2 = 2 * g.w;
-  const int EF = g.tf + 4, ET = g.tt + 4, EXT = EF * ET;  // h tile (+-2)
-  const int MF = g.tf + 2, MT = g.tt + 2, MID = MF * MT;  // y1 tile (+-1)
-  const int OUTP = g.tf * g.tt;
-  float* h = smem;            // [2w][EXT]; later [y2 | u]
-  float* y1 = h + W2 * EXT;   // [w][MID]
+int smem_bytes(const Geom& g);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = THREADS / 32;
-  const int n_tt = (g.T + g.tt - 1) / g.tt;
-  const int f0 = (blockIdx.x / n_tt) * g.tf, t0 = (blockIdx.x % n_tt) * g.tt;
-  const int b = blockIdx.y;
-  const long in_plane = (long)g.fin * g.tin;
-  const float* xb = x + (size_t)b * g.cin * in_plane;
+Geom make_geom(int cin, int w, int cout, int fin, int tin, int stride, int tf,
+               int tt) {
+  Geom g;
+  g.cin = cin; g.w = w; g.cout = cout; g.fin = fin; g.tin = tin;
+  g.stride = stride; g.tf = tf; g.tt = tt;
+  g.F = (fin + stride - 1) / stride;
+  g.T = (tin + stride - 1) / stride;
+  g.has_sc = 0;
+  g.ew = tt + 4; g.ext = (tf + 4) * g.ew;
+  g.mw = tt + 2; g.mid = (tf + 2) * g.mw;
+  g.outp = tf * tt;
+  g.se = plane(g.ext); g.sm = plane(g.mid); g.so = plane(g.outp);
+  g.kp9 = round8(9 * w); g.kp2 = round8(2 * w);
+  // the deepest x chunk, then the larger B buffer (16 or 8 KB), that fit
+  for (g.kx = 4; g.kx > 1; g.kx /= 2) {
+    g.bq = 1024;
+    if (smem_bytes(g) <= MAX_SMEM) return g;
+    g.bq = 512;
+    if (smem_bytes(g) <= MAX_SMEM) return g;
+  }
+  g.bq = smem_bytes(g) <= MAX_SMEM ? 1024 : 512;
+  return g;
+}
 
-  // ---- stage 1: h = relu20(W1 @ x + b1) over the +-2 halo, 0 outside ----
-  {
-    const int n_pg = (EXT + 32 * RP - 1) / (32 * RP);
-    const int n_og = (W2 + RO - 1) / RO;
-    for (int u = warp; u < n_pg * n_og; u += nwarps) {
-      const int o0 = (u / n_pg) * RO, pbase = (u % n_pg) * 32 * RP + lane;
-      int pb[RP];
-      bool ok[RP];
-#pragma unroll
-      for (int j = 0; j < RP; ++j) {
-        const int p = pbase + 32 * j;
-        const int f = f0 - 2 + p / ET, t = t0 - 2 + p % ET;
-        ok[j] = p < EXT && f >= 0 && f < g.F && t >= 0 && t < g.T;
-        pb[j] = ok[j] ? (f * g.stride) * g.tin + t * g.stride : 0;
-      }
-      float acc[RO][RP];
-      zero(acc);
-      mm_acc(acc, o0, W2, pb, xb, in_plane, g.cin, 1, 1, 0, w1);
-#pragma unroll
-      for (int i = 0; i < RO; ++i)
-#pragma unroll
-        for (int j = 0; j < RP; ++j) {
-          const int o = o0 + i, p = pbase + 32 * j;
-          if (o < W2 && p < EXT)
-            h[o * EXT + p] = ok[j] ? relu20(acc[i][j] + b1[o]) : 0.f;
-        }
+// Staged B (2 x bq float4), s1 [w][se], u [w][sm], staged x (2 x [8 kx][se]),
+// the biases (b1, bc1, bc2, b3 with Cout <= 256), then the int tables:
+// conv1, conv2 (kp9 each), project (kp2), x positions.
+int smem_bytes(const Geom& g) {
+  return 16 * 2 * g.bq + 4 * (g.w * (g.se + g.sm) + 2 * 8 * g.kx * g.se + 4 * g.w +
+                              256 + 2 * g.kp9 + g.kp2 + g.ext);
+}
+
+// The expand runs as one stage over the +-2 grid, both halves of h at once,
+// when that is one round; else s1 over +-2 and s2 over +-1.
+__host__ __device__ inline bool merged_expand(const Geom& g) {
+  return rounds(g.ext, round8(2 * g.w) / 8) == 1;
+}
+
+// The most n-tiles one round of a stage stages (as make_round counts them).
+int max_ntr(int P, int NPt) {
+  const int Mt = (P + 15) / 16, U = Mt * ((NPt + NTW - 1) / NTW);
+  int most = 0;
+  for (int first = 0; first < U; first += SLOTS * NWARPS) {
+    const int last = min(U, first + SLOTS * NWARPS) - 1;
+    most = max(most, min(NPt, (last / Mt + 1) * NTW) - (first / Mt) * NTW);
+  }
+  return most;
+}
+
+// The kernel's limits: conv1 and conv2 finish in one round (their outputs
+// overwrite their inputs' planes), one k-step of a round's B fits a buffer,
+// and one thread stages x at each position of the +-2 grid.
+bool supported(const Geom& g) {
+  const int npw = round8(g.w) / 8, npo = round8(g.cout) / 8;
+  return g.w <= 8 * NTW && g.cout <= 256 && g.ext <= THREADS &&
+         smem_bytes(g) <= MAX_SMEM &&
+         rounds(g.mid, npw) == 1 && rounds(g.outp, npw) == 1 &&
+         32 * max_ntr(g.outp, npo) <= g.bq &&
+         32 * max_ntr(g.ext, round8(2 * g.w) / 8) <= g.bq;
+}
+
+// Output tiles (frequency x time) the launch picks from.
+constexpr int TILES[][2] = {{16, 16}, {8, 32}};
+
+// The geometry of the tile whose blocks do the least work (the expand over
+// the halos of s1 and s2, or both halves over s1's where one round holds
+// them, the 3x3 convs over theirs, the 1x1s over the tile; ragged edges
+// included) among the tiles the kernel takes; tf = 0 when it takes none.
+Geom pick_geom(int cin, int w, int cout, int fin, int tin, int stride, int has_sc) {
+  Geom best{};
+  long long best_work = -1;
+  for (const auto& tile : TILES) {
+    Geom g = make_geom(cin, w, cout, fin, tin, stride, tile[0], tile[1]);
+    g.has_sc = has_sc;
+    if (!supported(g)) continue;
+    const long long expand = merged_expand(g) ? 2LL * g.ext : g.ext + g.mid;
+    const long long work =
+        (long long)((g.F + g.tf - 1) / g.tf) * ((g.T + g.tt - 1) / g.tt) *
+        ((long long)cin * w * expand + 9LL * w * w * (g.mid + g.outp) +
+         (2LL * w + (has_sc ? cin : 0)) * cout * g.outp);
+    if (best_work < 0 || work < best_work) {
+      best = g;
+      best_work = work;
     }
   }
-  __syncthreads();
+  return best;
+}
 
-  // ---- stage 2: y1 = relu20(conv3x3(s1) + bc1) over the +-1 halo; u = s2 + y1
-  {
-    const int n_pg = (MID + 32 * RP - 1) / (32 * RP);
-    const int n_og = (W + RO - 1) / RO;
-    for (int u = warp; u < n_pg * n_og; u += nwarps) {
-      const int o0 = (u / n_pg) * RO, pbase = (u % n_pg) * 32 * RP + lane;
-      int pb[RP];
-      bool ok[RP];
+struct Ctx {
+  const Geom& g;     // the kernel's __grid_constant__ parameter
+  float4* bbuf;      // staged B, two buffers
+  float* act;        // s1, then u; the tables' offsets are from here
+  float* xbuf;       // staged x, two buffers of [8 kx][se]
+  int* posx;         // x offset of each position of the stage's grid, or -1
+  const float* xb;   // x of this block's batch row
+  int f0, t0;
+};
+
+// A warp's share of round r of a stage over n-tiles [nb, nb + NPt): units
+// u = ng * Mt + m (n-group major), the round taking units [r * 32, r * 32 +
+// 32), slot s of warp w unit r * 32 + s * 16 + w. ntlo/ntr: the n-tiles the
+// round touches (staged B); nt0 and ntlo count from n-tile 0 of the weight.
+struct Round {
+  int nsl, m[SLOTS], nt0[SLOTS], nnt[SLOTS], ntlo, ntr;
+};
+
+__device__ __forceinline__ Round make_round(int r, int Mt, int nb, int NPt) {
+  const int warp = threadIdx.x >> 5, U = Mt * ((NPt + NTW - 1) / NTW);
+  Round rd;
+  rd.nsl = 0;
 #pragma unroll
-      for (int j = 0; j < RP; ++j) {
-        const int p = min(pbase + 32 * j, MID - 1);
-        const int mf = p / MT, mt = p % MT;
-        const int f = f0 - 1 + mf, t = t0 - 1 + mt;
-        ok[j] = f >= 0 && f < g.F && t >= 0 && t < g.T;
-        pb[j] = mf * ET + mt;  // tap (0,0) of the window centred at ext (mf+1, mt+1)
+  for (int s = 0; s < SLOTS; ++s) {
+    const int u = r * SLOTS * NWARPS + s * NWARPS + warp;
+    rd.m[s] = u < U ? u % Mt : 0;
+    rd.nt0[s] = u < U ? (u / Mt) * NTW : 0;
+    rd.nnt[s] = u < U ? min(NTW, NPt - rd.nt0[s]) : 0;
+    rd.nt0[s] += nb;
+    if (u < U) rd.nsl = s + 1;
+  }
+  const int first = r * SLOTS * NWARPS;
+  const int last = min(U, first + SLOTS * NWARPS) - 1;
+  rd.ntlo = (first / Mt) * NTW;
+  rd.ntr = min(NPt, (last / Mt + 1) * NTW) - rd.ntlo;
+  rd.ntlo += nb;
+  return rd;
+}
+
+using Acc = float[SLOTS][NTW][4];
+
+// acc[s] += A[rows ro[s]] @ B[:, the slot's n-tiles] over nks k-steps, in
+// 3xTF32. B (packed [nks][bnt][32] float4) and, when XA, 8 kx channels of x
+// at the stage's P grid positions (posx) are staged chunk by chunk into
+// shared memory, two buffers shared by every warp: B with cp.async, which
+// lands while chunk c is multiplied, x by coalesced loads, thread p taking
+// position p, eight channels in flight at a time. A is x (XA: element
+// (row p, k) at xbuf[(k - k0) * se + p] for the chunk's first k0) or the
+// block's activations (act[ro + tab[k]]).
+template <bool XA>
+__device__ __forceinline__ void kloop(Acc& acc, const Ctx& c, const Round& rd,
+                                      const int (&ro)[SLOTS][2],
+                                      const int* tab,
+                                      const float4* __restrict__ bp, int bnt,
+                                      int nks, int P) {
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int per = rd.ntr * 32;  // float4 of B per k-step
+  const int kc = max(1, min(XA ? c.g.kx : 8, c.g.bq / per));
+  const int nch = (nks + kc - 1) / kc;
+  const int in_plane = c.g.fin * c.g.tin;
+  auto issue = [&](int ch) {
+    const int k0 = ch * kc, n = min(kc, nks - k0);
+    float4* dst = c.bbuf + (ch & 1) * c.g.bq;
+    for (int i = tid; i < n * per; i += THREADS) {
+      const int ks = i / per;
+      cp_async16(dst + i, bp + ((size_t)(k0 + ks) * bnt + rd.ntlo) * 32 + (i - ks * per));
+    }
+    if (XA) {  // this thread's position, 8 channels per batch of loads
+      float* xd = c.xbuf + (ch & 1) * 8 * c.g.kx * c.g.se;
+      const int o = tid < P ? c.posx[tid] : -1;
+      for (int cc0 = 0; cc0 < 8 * n; cc0 += 8) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int chn = k0 * 8 + cc0 + j;
+          v[j] = o >= 0 && chn < c.g.cin ? __ldg(c.xb + (size_t)chn * in_plane + o) : 0.f;
+        }
+        if (tid < P) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) xd[(cc0 + j) * c.g.se + tid] = v[j];
+        }
       }
-      float acc[RO][RP];
-      zero(acc);
-      mm_acc(acc, o0, W, pb, h, EXT, W, 3, 3, ET, wc1);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) issue(ch + 1);
+    else cp_async_commit();  // an empty group keeps wait_group 1 exact
+    cp_async_wait1();
+    __syncthreads();
+    const float4* bb = c.bbuf + (ch & 1) * c.g.bq;
+    const float* a = XA ? c.xbuf + (ch & 1) * 8 * c.g.kx * c.g.se : c.act;
+    const int n = min(kc, nks - ch * kc);
+    for (int ksl = 0; ksl < n; ++ksl) {
+      int lo, hi;
+      if (XA) {
+        lo = (ksl * 8 + t) * c.g.se;
+        hi = lo + 4 * c.g.se;
+      } else {
+        const int k = (ch * kc + ksl) * 8 + t;
+        lo = tab[k];
+        hi = tab[k + 4];
+      }
 #pragma unroll
-      for (int i = 0; i < RO; ++i)
+      for (int s = 0; s < SLOTS; ++s) {
+        if (s < rd.nsl) {
+          uint32_t ab[4], as[4];
+          split(a[ro[s][0] + lo], ab[0], as[0]);
+          split(a[ro[s][1] + lo], ab[1], as[1]);
+          split(a[ro[s][0] + hi], ab[2], as[2]);
+          split(a[ro[s][1] + hi], ab[3], as[3]);
+          const float4* bk = bb + (ksl * rd.ntr + rd.nt0[s] - rd.ntlo) * 32 + lane;
+          // two n-tiles at a time, term by term: consecutive mma are
+          // independent, and the two small cross terms go first. Each
+          // k-step's sum starts from zero and is added to the running sum
+          // in fp32 (round to nearest): the tensor cores' own accumulation
+          // truncates, and over K = 9w that error outgrew the split's by
+          // several times
 #pragma unroll
-        for (int j = 0; j < RP; ++j) {
-          const int o = o0 + i, p = pbase + 32 * j;
-          if (o < W && p < MID) {
-            const float v = ok[j] ? relu20(acc[i][j] + bc1[o]) : 0.f;
-            y1[o * MID + p] = v;
-            h[(W + o) * EXT + (p / MT + 1) * ET + p % MT + 1] += v;
+          for (int nt = 0; nt < NTW; nt += 2) {
+            if (nt < rd.nnt[s]) {
+              const bool two = nt + 1 < rd.nnt[s];
+              const float4 q0 = bk[nt * 32];
+              const float4 q1 = two ? bk[(nt + 1) * 32] : q0;
+              float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+              mma(d0, as, __float_as_uint(q0.x), __float_as_uint(q0.y));
+              if (two) mma(d1, as, __float_as_uint(q1.x), __float_as_uint(q1.y));
+              mma(d0, ab, __float_as_uint(q0.z), __float_as_uint(q0.w));
+              if (two) mma(d1, ab, __float_as_uint(q1.z), __float_as_uint(q1.w));
+              mma(d0, ab, __float_as_uint(q0.x), __float_as_uint(q0.y));
+              if (two) mma(d1, ab, __float_as_uint(q1.x), __float_as_uint(q1.y));
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc[s][nt][i] += d0[i];
+                if (two) acc[s][nt + 1][i] += d1[i];
+              }
+            }
           }
         }
-    }
-  }
-  __syncthreads();
-
-  // ---- stage 3: y2 = relu20(conv3x3(u) + bc2) on the tile, into h[:w] ----
-  {
-    const int n_pg = (OUTP + 32 * RP - 1) / (32 * RP);
-    const int n_og = (W + RO - 1) / RO;
-    for (int u = warp; u < n_pg * n_og; u += nwarps) {
-      const int o0 = (u / n_pg) * RO, pbase = (u % n_pg) * 32 * RP + lane;
-      int pb[RP];
-#pragma unroll
-      for (int j = 0; j < RP; ++j) {
-        const int p = min(pbase + 32 * j, OUTP - 1);
-        pb[j] = (p / g.tt + 1) * ET + p % g.tt + 1;
       }
-      float acc[RO][RP];
-      zero(acc);
-      mm_acc(acc, o0, W, pb, h + W * EXT, EXT, W, 3, 3, ET, wc2);
-#pragma unroll
-      for (int i = 0; i < RO; ++i)
-#pragma unroll
-        for (int j = 0; j < RP; ++j) {
-          const int o = o0 + i, p = pbase + 32 * j;
-          if (o < W && p < OUTP) h[o * EXT + p] = relu20(acc[i][j] + bc2[o]);
-        }
     }
-  }
-  __syncthreads();
-
-  // ---- stage 4: out = relu20(W3 @ [y1; y2] + b3 + shortcut) ----
-  {
-    const int n_pg = (OUTP + 32 * RP - 1) / (32 * RP);
-    const int n_og = (g.cout + RO - 1) / RO;
-    const long out_plane = (long)g.F * g.T;
-    float* ob = out + (size_t)b * g.cout * out_plane;
-    for (int u = warp; u < n_pg * n_og; u += nwarps) {
-      const int o0 = (u / n_pg) * RO, pbase = (u % n_pg) * 32 * RP + lane;
-      int pm[RP], po[RP], px[RP], f[RP], t[RP];
-      bool ok[RP];
-#pragma unroll
-      for (int j = 0; j < RP; ++j) {
-        const int p = pbase + 32 * j;
-        const int pc = min(p, OUTP - 1);
-        const int pf = pc / g.tt, pt = pc % g.tt;
-        f[j] = f0 + pf;
-        t[j] = t0 + pt;
-        ok[j] = p < OUTP && f[j] < g.F && t[j] < g.T;
-        pm[j] = (pf + 1) * MT + pt + 1;  // y1 centre
-        po[j] = pc;                      // y2
-        px[j] = ok[j] ? (f[j] * g.stride) * g.tin + t[j] * g.stride : 0;
-      }
-      float acc[RO][RP];
-      zero(acc);
-      mm_acc(acc, o0, g.cout, pm, y1, MID, W, 1, 1, 0, w3);
-      mm_acc(acc, o0, g.cout, po, h, EXT, W, 1, 1, 0, w3 + (size_t)W * g.cout);
-      if (g.has_sc) mm_acc(acc, o0, g.cout, px, xb, in_plane, g.cin, 1, 1, 0, wsc);
-#pragma unroll
-      for (int i = 0; i < RO; ++i)
-#pragma unroll
-        for (int j = 0; j < RP; ++j) {
-          const int o = o0 + i;
-          if (o < g.cout && ok[j]) {
-            float v = acc[i][j] + b3[o];
-            if (!g.has_sc) v += xb[o * in_plane + px[j]];
-            ob[o * out_plane + (long)f[j] * g.T + t[j]] = relu20(v);
-          }
-        }
-    }
+    __syncthreads();
   }
 }
 
-int smem_bytes(int w, int tf, int tt) {
-  return (int)sizeof(float) * (2 * w * (tf + 4) * (tt + 4) + w * (tf + 2) * (tt + 2));
+// What an epilogue needs of one output position, computed once per row.
+struct Pos {
+  int p, a, b;
+  bool in;
+};
+
+// One stage: P positions x n-tiles [nb, nb + NPt) of weights with bnt
+// n-tiles, round by round; the accumulators start at bias[n] (shared
+// memory, readable up to the last padded n). The main K phase reads A
+// through row(p) (+ tab, or staged x when XA); bsc, when set, adds a second
+// phase over staged x (the shortcut) at the same positions. epi(pos(p), n,
+// v, ok) stores each element, ok false for padding rows and slots, once the
+// round's K loops are done (after a barrier, so it may overwrite what the
+// loops read); it stores by predicate, without branches.
+template <bool XA, class Row, class PosFn, class Epi>
+__device__ __forceinline__ void run_stage(const Ctx& c, int P, int nb, int NPt,
+                                          int bnt, const float* bias,
+                                          const int* tab, const float4* bp,
+                                          int nks, Row row,
+                                          const float4* bsc, PosFn pos,
+                                          Epi epi) {
+  const int Mt = (P + 15) / 16, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int nr = rounds(P, NPt);
+  for (int r = 0; r < nr; ++r) {
+    const Round rd = make_round(r, Mt, nb, NPt);
+    int ro[SLOTS][2];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) ro[s][h] = row(min(rd.m[s] * 16 + g + 8 * h, P - 1));
+    Acc acc;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[s][nt][i] = bias[(rd.nt0[s] + nt) * 8 + 2 * t + (i & 1)];
+    kloop<XA>(acc, c, rd, ro, tab, bp, bnt, nks, P);
+    if (bsc != nullptr) {
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ro[s][h] = min(rd.m[s] * 16 + g + 8 * h, P - 1);
+      kloop<true>(acc, c, rd, ro, nullptr, bsc, bnt, round8(c.g.cin) / 8, P);
+    }
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = rd.m[s] * 16 + g + 8 * h;
+        const bool row_ok = s < rd.nsl && p < P;
+        const Pos ps = pos(min(p, P - 1));
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            epi(ps, (rd.nt0[s] + nt) * 8 + 2 * t + i, acc[s][nt][2 * h + i],
+                row_ok && nt < rd.nnt[s]);
+      }
+  }
+}
+
+// posx[p] for the P positions of a grid gw wide whose origin is (f0 + fo,
+// t0 + to): x's offset at that output position, -1 outside the image.
+__device__ __forceinline__ void set_posx(const Ctx& c, int P, int gw, int fo, int to) {
+  for (int p = threadIdx.x; p < P; p += THREADS) {
+    const int f = c.f0 + fo + p / gw, t = c.t0 + to + p % gw;
+    c.posx[p] = f >= 0 && f < c.g.F && t >= 0 && t < c.g.T
+                    ? (f * c.g.stride) * c.g.tin + t * c.g.stride : -1;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+res2_block_kernel(const float* __restrict__ x, const float4* __restrict__ w1,
+                  const float* __restrict__ b1,
+                  const float4* __restrict__ wc1, const float* __restrict__ bc1,
+                  const float4* __restrict__ wc2, const float* __restrict__ bc2,
+                  const float4* __restrict__ w3, const float* __restrict__ b3,
+                  const float4* __restrict__ wsc, float* __restrict__ out,
+                  const __grid_constant__ Geom g) {
+  extern __shared__ float4 smem4[];
+  const int W = g.w;
+  float* act = reinterpret_cast<float*>(smem4 + 2 * g.bq);
+  float* s1 = act;                  // [w][se]: h[:w] over the +-2 halo; then y1 [w][so]
+  float* u = s1 + W * g.se;         // [w][sm]: h[w:] (+ y1) over +-1; then y2 [w][so]
+  float* xbuf = u + W * g.sm;       // 2 x [8 kx][se]
+  float* sb1 = xbuf + 2 * 8 * g.kx * g.se;  // biases: b1 [2w], bc1 [w], bc2 [w], b3 [cout]
+  float* sbc1 = sb1 + 2 * W;
+  float* sbc2 = sbc1 + W;
+  float* sb3 = sbc2 + W;
+  int* tab1 = reinterpret_cast<int*>(sb3 + 256);  // conv1: k -> offset
+  int* tab2 = tab1 + g.kp9;                       // conv2
+  int* tab3 = tab2 + g.kp9;                       // project, [y1; y2]
+  const int n_tt = (g.T + g.tt - 1) / g.tt;
+  const int f0 = (blockIdx.x / n_tt) * g.tf, t0 = (blockIdx.x % n_tt) * g.tt;
+  const Ctx c{g, smem4, act, xbuf, tab3 + g.kp2,
+              x + (size_t)blockIdx.y * g.cin * g.fin * g.tin, f0, t0};
+  for (int i = threadIdx.x; i < 2 * W; i += THREADS) sb1[i] = b1[i];
+  for (int i = threadIdx.x; i < W; i += THREADS) {
+    sbc1[i] = bc1[i];
+    sbc2[i] = bc2[i];
+  }
+  for (int i = threadIdx.x; i < 256; i += THREADS) sb3[i] = i < g.cout ? b3[i] : 0.f;
+
+  for (int k = threadIdx.x; k < g.kp9; k += THREADS) {
+    const int kk = min(k, 9 * W - 1), tap = kk / W, ch = kk % W;
+    const int df = tap / 3, dt = tap % 3;
+    tab1[k] = ch * g.se + df * g.ew + dt;
+    tab2[k] = W * g.se + ch * g.sm + df * g.mw + dt;
+  }
+  for (int k = threadIdx.x; k < g.kp2; k += THREADS) {
+    const int kk = min(k, 2 * W - 1);
+    tab3[k] = kk < W ? kk * g.so : W * g.se + (kk - W) * g.so;
+  }
+  const int npw = round8(W) / 8, npo = round8(g.cout) / 8, cks = round8(g.cin) / 8;
+  const int nph = round8(2 * W) / 8;  // n-tiles of W1 (both halves of h)
+  auto inside = [&](int f, int t) { return f >= 0 && f < g.F && t >= 0 && t < g.T; };
+  auto id = [](int p) { return p; };
+
+  // ---- stage 1: h = relu20(W1 @ x + b1): s1 over +-2, s2 over +-1, 0 outside
+  set_posx(c, g.ext, g.ew, -2, -2);
+  __syncthreads();
+  if (merged_expand(g)) {
+    // both halves over +-2 in one pass over x; s2 kept where the +-1 grid is
+    run_stage<true>(c, g.ext, 0, nph, nph, sb1, nullptr, w1, cks, id, nullptr,
+                    [&](int p) {  // a: the position's index in the +-1 grid, or -1
+                      const int ef = p / g.ew, et = p % g.ew;
+                      const bool mid = ef >= 1 && ef <= g.tf + 2 && et >= 1 && et <= g.tt + 2;
+                      return Pos{p, mid ? (ef - 1) * g.mw + et - 1 : -1, 0,
+                                 inside(f0 - 2 + ef, t0 - 2 + et)};
+                    },
+                    [&](const Pos& q, int n, float v, bool ok) {
+                      const float h = q.in ? relu20(v) : 0.f;
+                      if (ok && n < W) s1[n * g.se + q.p] = h;
+                      if (ok && n >= W && n < 2 * W && q.a >= 0) u[(n - W) * g.sm + q.a] = h;
+                    });
+  } else {
+    run_stage<true>(c, g.ext, 0, npw, nph, sb1, nullptr, w1, cks, id, nullptr,
+                    [&](int p) {
+                      return Pos{p, 0, 0, inside(f0 - 2 + p / g.ew, t0 - 2 + p % g.ew)};
+                    },
+                    [&](const Pos& q, int n, float v, bool ok) {
+                      if (ok && n < W) s1[n * g.se + q.p] = q.in ? relu20(v) : 0.f;
+                    });
+    set_posx(c, g.mid, g.mw, -1, -1);
+    __syncthreads();
+    // n-tiles from the one holding channel w (its first channels are s1's)
+    run_stage<true>(c, g.mid, W / 8, nph - W / 8, nph, sb1, nullptr, w1, cks, id, nullptr,
+                    [&](int p) {
+                      return Pos{p, 0, 0, inside(f0 - 1 + p / g.mw, t0 - 1 + p % g.mw)};
+                    },
+                    [&](const Pos& q, int n, float v, bool ok) {
+                      if (ok && n >= W && n < 2 * W)
+                        u[(n - W) * g.sm + q.p] = q.in ? relu20(v) : 0.f;
+                    });
+  }
+  __syncthreads();
+
+  // ---- stage 2: y1 = relu20(conv3x3(s1) + bc1) over +-1; u = s2 + y1;
+  // y1 over the tile into s1's planes (s1 is dead once the round's K loop
+  // has ended)
+  run_stage<false>(c, g.mid, 0, npw, npw, sbc1, tab1, wc1, g.kp9 / 8,
+                   [&](int p) { return (p / g.mw) * g.ew + p % g.mw; }, nullptr,
+                   [&](int p) {  // a: y1's index over the tile, or -1 in the halo
+                     const int mf = p / g.mw, mt = p % g.mw;
+                     const bool ctr = mf >= 1 && mf <= g.tf && mt >= 1 && mt <= g.tt;
+                     return Pos{p, ctr ? (mf - 1) * g.tt + mt - 1 : -1, 0,
+                                inside(f0 - 1 + mf, t0 - 1 + mt)};
+                   },
+                   [&](const Pos& q, int n, float v, bool ok) {
+                     const float y = q.in ? relu20(v) : 0.f;
+                     if (ok && n < W) u[n * g.sm + q.p] += y;
+                     if (ok && n < W && q.a >= 0) s1[n * g.so + q.a] = y;
+                   });
+  __syncthreads();
+
+  // ---- stage 3: y2 = relu20(conv3x3(u) + bc2) over the tile, into u's planes
+  run_stage<false>(c, g.outp, 0, npw, npw, sbc2, tab2, wc2, g.kp9 / 8,
+                   [&](int p) { return (p / g.tt) * g.mw + p % g.tt; }, nullptr,
+                   [](int p) { return Pos{p, 0, 0, true}; },
+                   [&](const Pos& q, int n, float v, bool ok) {
+                     if (ok && n < W) u[n * g.so + q.p] = relu20(v);
+                   });
+  set_posx(c, g.outp, g.tt, 0, 0);
+  __syncthreads();
+
+  // ---- stage 4: out = relu20(W3 @ [y1; y2] + b3 + shortcut) ----
+  const size_t out_plane = (size_t)g.F * g.T, in_plane = (size_t)g.fin * g.tin;
+  float* ob = out + (size_t)blockIdx.y * g.cout * out_plane;
+  run_stage<false>(c, g.outp, 0, npo, npo, sb3, tab3, w3, g.kp2 / 8, id,
+                   g.has_sc ? wsc : nullptr,
+                   [&](int p) {  // a: out's offset in a plane, b: x's
+                     const int f = f0 + p / g.tt, t = t0 + p % g.tt;
+                     return Pos{p, f * g.T + t, (f * g.stride) * g.tin + t * g.stride,
+                                f < g.F && t < g.T};
+                   },
+                   [&](const Pos& q, int n, float v, bool ok) {
+                     ok = ok && n < g.cout && q.in;
+                     const float r = g.has_sc || !ok ? 0.f : __ldg(c.xb + n * in_plane + q.b);
+                     if (ok) ob[n * out_plane + q.a] = relu20(v + r);
+                   });
 }
 
 }  // namespace
@@ -266,40 +585,34 @@ const char* s3d_errstr(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared-memory bytes one block needs for split width w and a tf x tt tile.
-int s3d_res2_smem_bytes(int w, int tf, int tt) { return smem_bytes(w, tf, tt); }
-
 // x [batch, cin, fin, tin] -> out [batch, cout, F, T], F = ceil(fin / stride),
-// T = ceil(tin / stride). Weights K-major: w1 [cin][2w], wc1/wc2 [9w][w]
-// (k = (df*3 + dt)*w + c), w3 [2w][cout], wsc [cin][cout] or null when the
-// shortcut is the identity (stride 1, cin == cout). b3 carries the shortcut's
-// folded bias. All fp32, contiguous, on the device of `stream`.
-int s3d_res2_block_f32(const void* x, const void* w1, const void* b1,
-                       const void* wc1, const void* bc1, const void* wc2,
-                       const void* bc2, const void* w3, const void* b3,
-                       const void* wsc, void* out, int batch, int cin, int w,
-                       int cout, int fin, int tin, int stride, int tf, int tt,
+// T = ceil(tin / stride), one block per output tile (pick_geom) and batch row.
+// Weights packed by the wrapper's fold (3xTF32 B fragments, [K/8][N/8][32]
+// float4, K and N padded to multiples of 8): w1 the expand [cin][2w], wc1/wc2
+// [9w][w] (k = (df*3 + dt)*w + c), w3 [2w][cout], wsc [cin][cout] or null when
+// the shortcut is the identity (stride 1, cin == cout). b1 [2w], bc1/bc2 [w],
+// b3 [cout] (with the shortcut's folded bias). All fp32, contiguous, on the
+// device of `stream`. cudaErrorInvalidValue when no tile takes the shape.
+int s3d_res2_block_f32(const void* x, const void* w1, const void* b1, const void* wc1, const void* bc1,
+                       const void* wc2, const void* bc2, const void* w3,
+                       const void* b3, const void* wsc, void* out, int batch,
+                       int cin, int w, int cout, int fin, int tin, int stride,
                        void* stream) {
-  Geom g;
-  g.cin = cin; g.w = w; g.cout = cout; g.fin = fin; g.tin = tin;
-  g.stride = stride;
-  g.F = (fin + stride - 1) / stride;
-  g.T = (tin + stride - 1) / stride;
-  g.tf = tf; g.tt = tt;
-  g.has_sc = wsc != nullptr;
-  const int smem = smem_bytes(w, tf, tt);
+  const Geom g = pick_geom(cin, w, cout, fin, tin, stride, wsc != nullptr);
+  if (g.tf == 0) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(g);
   cudaError_t err = cudaFuncSetAttribute(
       res2_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = ((g.F + tf - 1) / tf) * ((g.T + tt - 1) / tt);
+  const int n_tiles = ((g.F + g.tf - 1) / g.tf) * ((g.T + g.tt - 1) / g.tt);
   dim3 grid(n_tiles, batch);
   res2_block_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(wc1),
-      static_cast<const float*>(bc1), static_cast<const float*>(wc2),
-      static_cast<const float*>(bc2), static_cast<const float*>(w3),
-      static_cast<const float*>(b3), static_cast<const float*>(wsc),
-      static_cast<float*>(out), g);
+      static_cast<const float*>(x), static_cast<const float4*>(w1),
+      static_cast<const float*>(b1),
+      static_cast<const float4*>(wc1), static_cast<const float*>(bc1),
+      static_cast<const float4*>(wc2), static_cast<const float*>(bc2),
+      static_cast<const float4*>(w3), static_cast<const float*>(b3),
+      static_cast<const float4*>(wsc), static_cast<float*>(out), g);
   return (int)cudaGetLastError();
 }
 

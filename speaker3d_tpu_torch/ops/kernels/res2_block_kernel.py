@@ -6,8 +6,10 @@ scale-2 ERes2NetV2 block without AFF, every BatchNorm folded into its conv:
 1x1 expand + Hardtanh(0, 20), split into halves of width w, 3x3 conv on the
 first half, add to the second half, 3x3 conv, concat, 1x1 project plus the
 shortcut (1x1 conv + BN, or identity), Hardtanh(0, 20). The CUDA kernel
-(``csrc/res2_block.cu``) takes NCHW activations and reads the even rows and
-columns itself when the stride is 2.
+(``csrc/res2_block.cu``) takes NCHW activations, reads the even rows and
+columns itself when the stride is 2, and runs every contraction on the
+tensor cores in 3xTF32 (fp32-level error) with weights that the fold splits
+(``tf32_split``) and packs into fragment order (``pack_b``) once.
 
 ``res2_block`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; ``res2_block.launches`` counts the launches.
@@ -25,16 +27,43 @@ import torch.nn.functional as F
 from speaker3d_tpu_torch.kernels.build import check, library
 from speaker3d_tpu_torch.models.common import relu20
 
-# Output tile of one CUDA block (frequency x time). Shared memory per block
-# is 4 * (2w (TF+4)(TT+4) + w (TF+2)(TT+2)) bytes: 137 KB at w = 52.
-TILE_F, TILE_T = 8, 16
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+
+def tf32_split(a: torch.Tensor):
+    """(big, small) with big = rna_tf32(a), small = rna_tf32(a - big): the
+    operand split of 3xTF32, as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero, low 13 mantissa bits cleared)."""
+
+    def rna(v):
+        bits = v.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(a)
+    return big, rna(a.float() - big)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def pack_b(kmat: torch.Tensor) -> torch.Tensor:
+    """A K-major weight [K, N] as 3xTF32 ``mma.m16n8k8`` B fragments:
+    [Kp/8, Np/8, 32, 4] with K and N zero-padded to multiples of 8 and, for
+    k-step ks, n-tile nt and lane 4g + t, (b0 big, b1 big, b0 small, b1
+    small) with b0 = W[8 ks + t, 8 nt + g] and b1 = W[8 ks + t + 4, 8 nt + g]."""
+    k, n = kmat.shape
+    m = kmat.new_zeros((_round8(k), _round8(n)), dtype=torch.float32)
+    m[:k, :n] = kmat
+    # [ks, j, t, nt, g] with k = 8 ks + 4 j + t -> [ks, nt, g, t, j]
+    frag = lambda v: v.view(m.shape[0] // 8, 2, 4, m.shape[1] // 8, 8).permute(
+        0, 3, 4, 2, 1).reshape(m.shape[0] // 8, m.shape[1] // 8, 32, 2)
+    big, small = tf32_split(m)
+    return torch.cat([frag(big), frag(small)], dim=-1).contiguous()
 
 
 @dataclass(frozen=True)
 class FoldedRes2Block:
     """BN-folded weights of one scale-2 block: OIHW for the plain version,
-    K-major ([K][O]) for the kernel."""
+    packed 3xTF32 B fragments (``pack_b``) for the kernel."""
 
     w1: torch.Tensor            # [2w, Cin, 1, 1]
     b1: torch.Tensor            # [2w]
@@ -45,11 +74,11 @@ class FoldedRes2Block:
     w3: torch.Tensor            # [Cout, 2w, 1, 1]
     b3: torch.Tensor            # [Cout]: bn3's and the shortcut BN's biases
     wsc: Optional[torch.Tensor]  # [Cout, Cin, 1, 1] or None (identity)
-    k_w1: torch.Tensor          # [Cin, 2w]
-    k_wc1: torch.Tensor         # [9w, w], row (df*3 + dt)*w + c
-    k_wc2: torch.Tensor         # [9w, w]
-    k_w3: torch.Tensor          # [2w, Cout]
-    k_wsc: Optional[torch.Tensor]  # [Cin, Cout]
+    p_w1: torch.Tensor          # K = Cin, N = 2w
+    p_wc1: torch.Tensor         # K = 9w, row (df*3 + dt)*w + c; N = w
+    p_wc2: torch.Tensor
+    p_w3: torch.Tensor          # K = 2w, N = Cout
+    p_wsc: Optional[torch.Tensor]  # K = Cin, N = Cout
 
     @property
     def width(self) -> int:
@@ -58,7 +87,8 @@ class FoldedRes2Block:
 
 def fold_res2_block(sd: Mapping[str, torch.Tensor],
                     eps: float = 1e-5) -> FoldedRes2Block:
-    """Fold BatchNorm (running statistics) into the preceding convs.
+    """Fold BatchNorm (running statistics) into the preceding convs, and
+    pack the kernel's weights.
 
     ``sd`` maps the block's state_dict names (``conv1.weight``,
     ``bn1.running_var``, ``convs.0.weight``, ``shortcut.1.bias``, ...) to
@@ -73,20 +103,21 @@ def fold_res2_block(sd: Mapping[str, torch.Tensor],
 
     def kmajor(k):  # OIHW -> [(kh*KW + kw)*I + i, O]
         o, i, kh, kw = k.shape
-        return k.permute(2, 3, 1, 0).reshape(kh * kw * i, o).contiguous()
+        return k.permute(2, 3, 1, 0).reshape(kh * kw * i, o)
 
     w1, b1 = fold("conv1", "bn1")
     wc1, bc1 = fold("convs.0", "bns.0")
     wc2, bc2 = fold("convs.1", "bns.1")
     w3, b3 = fold("conv3", "bn3")
-    wsc = k_wsc = None
+    wsc = p_wsc = None
     if "shortcut.0.weight" in sd:
         wsc, bsc = fold("shortcut.0", "shortcut.1")
-        k_wsc = kmajor(wsc)
+        p_wsc = pack_b(kmajor(wsc))
         b3 = (b3 + bsc).contiguous()
     return FoldedRes2Block(w1, b1, wc1, bc1, wc2, bc2, w3, b3, wsc,
-                           kmajor(w1), kmajor(wc1), kmajor(wc2), kmajor(w3),
-                           k_wsc)
+                           pack_b(kmajor(w1)), pack_b(kmajor(wc1)),
+                           pack_b(kmajor(wc2)),
+                           pack_b(kmajor(w3)), p_wsc)
 
 
 def res2_block_plain(x, p: FoldedRes2Block, stride: int = 1):
@@ -106,15 +137,15 @@ def _lib():
     if not getattr(lib, "_s3d_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.s3d_res2_block_f32.restype = i
-        lib.s3d_res2_block_f32.argtypes = [p] * 11 + [i] * 9 + [p]
-        lib.s3d_res2_smem_bytes.restype = i
-        lib.s3d_res2_smem_bytes.argtypes = [i, i, i]
+        lib.s3d_res2_block_f32.argtypes = [p] * 11 + [i] * 7 + [p]
         lib._s3d_bound = True
     return lib
 
 
 def res2_block_cuda(x, p: FoldedRes2Block, stride: int = 1):
-    """Launch csrc/res2_block.cu on x's CUDA device."""
+    """Launch csrc/res2_block.cu on x's CUDA device. The launch picks the
+    output tile; a shape that no tile takes (w > 64, Cout > 256) returns
+    ``cudaErrorInvalidValue``, raised here."""
     if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 4:
         raise ValueError("res2 kernel: x must be a float32 [B, C, F, T] "
                          "CUDA tensor")
@@ -122,38 +153,38 @@ def res2_block_cuda(x, p: FoldedRes2Block, stride: int = 1):
         raise ValueError(f"res2 kernel: unsupported stride {stride}")
     x = x.contiguous()
     batch, cin, fin, tin = x.shape
-    w, cout = p.width, p.k_w3.shape[1]
-    if p.k_w1.shape[0] != cin:
+    w, cout = p.width, p.w3.shape[0]
+    if p.w1.shape[1] != cin:
         raise ValueError(f"res2 kernel: x has {cin} channels, the block "
-                         f"expects {p.k_w1.shape[0]}")
+                         f"expects {p.w1.shape[1]}")
     if p.wsc is None and (stride != 1 or cin != cout):
         raise ValueError("res2 kernel: identity shortcut needs stride 1 and "
                          "Cin == Cout")
-    weights = [p.k_w1, p.b1, p.k_wc1, p.bc1, p.k_wc2, p.bc2, p.k_w3, p.b3]
-    if p.k_wsc is not None:
-        weights.append(p.k_wsc)
+    want = {"p_w1": (cin, 2 * w), "p_wc1": (9 * w, w),
+            "p_wc2": (9 * w, w), "p_w3": (2 * w, cout)}
+    if p.p_wsc is not None:
+        want["p_wsc"] = (cin, cout)
+    for name, (k, n) in want.items():
+        if getattr(p, name).shape != (_round8(k) // 8, _round8(n) // 8, 32, 4):
+            raise ValueError(f"res2 kernel: {name} is not packed for "
+                             f"K = {k}, N = {n}")
+    weights = [getattr(p, name) for name in want] + [p.b1, p.bc1, p.bc2, p.b3]
     for t in weights:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("res2 kernel: folded weights must be contiguous "
                              "float32 on x's device")
-    lib = _lib()
-    smem = lib.s3d_res2_smem_bytes(w, TILE_F, TILE_T)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"res2 kernel: width {w} needs {smem} B of shared "
-                         f"memory per block (> {_MAX_SMEM})")
-    F_out, T_out = -(-fin // stride), -(-tin // stride)
-    out = torch.empty((batch, cout, F_out, T_out), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((batch, cout, -(-fin // stride), -(-tin // stride)),
+                      dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.s3d_res2_block_f32(
-        x.data_ptr(), p.k_w1.data_ptr(), p.b1.data_ptr(), p.k_wc1.data_ptr(),
-        p.bc1.data_ptr(), p.k_wc2.data_ptr(), p.bc2.data_ptr(),
-        p.k_w3.data_ptr(), p.b3.data_ptr(),
-        p.k_wsc.data_ptr() if p.k_wsc is not None else None,
-        out.data_ptr(), batch, cin, w, cout, fin, tin, stride, TILE_F, TILE_T,
-        stream)
+        x.data_ptr(), p.p_w1.data_ptr(), p.b1.data_ptr(),
+        p.p_wc1.data_ptr(), p.bc1.data_ptr(), p.p_wc2.data_ptr(),
+        p.bc2.data_ptr(), p.p_w3.data_ptr(), p.b3.data_ptr(),
+        p.p_wsc.data_ptr() if p.p_wsc is not None else None,
+        out.data_ptr(), batch, cin, w, cout, fin, tin, stride, stream)
     check(lib, rc, "s3d_res2_block_f32")
     res2_block.launches += 1
     return out

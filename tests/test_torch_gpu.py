@@ -75,6 +75,7 @@ def test_fbank_kernel_matches_plain(cuda, n):
     (64, 64, 1, 80, 298),   # layer1 at 3 s chunks (L = 48,000)
     (128, 128, 2, 80, 748),  # layer2 entry at 7.5 s (L = 120,000)
     (256, 128, 1, 40, 149),  # layer2 after the stride at 3 s chunks
+    (36, 36, 1, 13, 29),    # Cin and w = 14 not multiples of 8, Cout 72
 ])
 def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
     blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride), cin + f)
@@ -89,6 +90,17 @@ def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
     torch.cuda.synchronize()
     assert rk.res2_block.launches == launches + 1
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    # 3xTF32 keeps fp32-level error; one TF32 pass would be ~4e-3 off
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_res2_kernel_refuses_a_shape_no_tile_takes(cuda):
+    # planes 160: w = 65 > 64 and Cout 320 > 256
+    blk = _randomize(BasicBlockERes2NetV2(64, 160), 0).to(cuda)
+    launches = rk.res2_block.launches
+    with pytest.raises(RuntimeError, match="s3d_res2_block_f32"):
+        rk.res2_block(torch.rand((1, 64, 8, 8), device=cuda), blk.folded())
+    assert rk.res2_block.launches == launches
 
 
 def test_embed_call_launches_both_kernels(cuda):

@@ -118,7 +118,7 @@ def test_identity_shortcut_fold():
     _, _, sd = _block_weights(4, 32, 6, 32)
     sd = {k: v for k, v in sd.items() if not k.startswith("shortcut")}
     folded = rk.fold_res2_block(sd)
-    assert folded.wsc is None and folded.k_wsc is None
+    assert folded.wsc is None and folded.p_wsc is None
     x = torch.rand((1, 32, 6, 9))
     out = rk.res2_block_plain(x, folded)
     sd_sc = dict(sd, **{"shortcut.0.weight": torch.eye(32)[:, :, None, None],
