@@ -19,16 +19,20 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    on the card (cosine >= 0.9999);
 4. K1 (fbank) on [64, L] for each of those L against its plain version on
    the card, with the Kaldi-oracle thresholds of the CPU tests; kernel and
-   plain times;
+   plain times, the bound at the 3xTF32 tensor-core rate (the fp32
+   CUDA-core bound, the share of the bound reached and the share of the
+   card's measured mma.sync TF32 rate beside it);
 5. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
    at each L (B = 64) against its plain version, fp32 with TF32 off,
    rtol = atol = 1e-3 and max abs error <= 1e-4; times, the bound at the
    3xTF32 tensor-core rate (the fp32 CUDA-core bound beside it) and the
    share of the bound reached;
-6. K3 (the five layout probes): the probe tool's own run on the card, which
-   launches every probe, holds it against its plain version (a-c bit-exact,
-   d and e within 2^-8 max|want| and unequal in at most 1% of elements) and
-   times it; then plain and library times;
+6. K3 (the five layout probes): the probe tool's own run on the card, one
+   fused launch of all five, each output held against its plain version
+   (a-c bit-exact, d and e within 2^-8 max|want| and unequal in at most 1%
+   of elements), the launch timed; the launch floor (an empty kernel
+   through the same ctypes path); then each probe's own launch, plain and
+   library times;
 7. the device NN-chain AHC on 5,000 well-separated embeddings against the
    host float64 NN-chain partition.
 
@@ -36,8 +40,8 @@ The kernels line gives K1's and K2's times at the L of the file's chunk
 calls (the path's most frequent batch), and every L in ``shapes``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``. Times come from CUDA events (median after warm-up) on the card
-named in the output.
+{...}}``. Times come from CUDA events around many back-to-back calls
+(median of a few such runs, after warm-up) on the card named in the output.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ CHUNK = 24000                     # 1.5 s at 16 kHz
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12       # H100 SXM, bf16 on the tensor cores, dense
 PEAK_TF32_TC_FLOPS = 495e12       # H100 SXM, TF32 on the tensor cores, dense
-K2_TF32_PASSES = 3                # K2's fp32-accurate products: 3xTF32
+TF32_PASSES = 3                   # K1's and K2's fp32-accurate products: 3xTF32
 K2_MAX_ABS_ERR = 1e-4             # fp32 level (one TF32 pass: ~4e-3)
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MODEL_W24 = "iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common"
@@ -69,11 +73,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of one call of ``fn`` (the port's timer)."""
+def cuda_ms(fn, warmup: int = 3, iters: int = 20, runs: int = 5) -> float:
+    """Milliseconds per call of ``fn``: the port's timer (``iters`` calls
+    between one pair of CUDA events, median of ``runs``)."""
     from speaker3d_tpu_torch.device import cuda_ms as timer
 
-    return timer(fn, warmup, iters)
+    return timer(fn, warmup, iters, runs)
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
@@ -133,6 +138,22 @@ def _at(rows: list, main_len: int) -> list:
     return [r for r in rows if r["L"] == main_len]
 
 
+def mma_sync_tf32_tflops() -> float:
+    """The card's mma.sync.m16n8k8 TF32 rate (the instruction of K1 and K2):
+    the probe library's register-only loop, 16 warps on every SM."""
+    import torch
+
+    from speaker3d_tpu_torch.tools import probe_ops as po
+
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 512, 4096
+    out = torch.empty(blocks * threads, device="cuda")
+    n_mma = po.mma_rate_launch(out, blocks, threads, iters)
+    ms = cuda_ms(lambda: po.mma_rate_launch(out, blocks, threads, iters),
+                 warmup=1, iters=3, runs=3)
+    return n_mma * 2 * 16 * 8 * 8 / ms / 1e9
+
+
 def phase_k1(lengths, main_len: int) -> dict:
     import torch
 
@@ -143,25 +164,34 @@ def phase_k1(lengths, main_len: int) -> dict:
     cfg = FbankConfig()
     fb = KaldiFbank(cfg, device="cuda")
     kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
+    rate = mma_sync_tf32_tflops()
+    log(f"[K1 ceiling] mma.sync TF32 on this card {rate:.1f} TFLOP/s "
+        f"({rate / (PEAK_TF32_TC_FLOPS / 1e12):.1%} of the dense TF32 peak)")
     rng = np.random.default_rng(0)
     rows = []
     for L in lengths:
         wav = torch.from_numpy(_test_waves(rng, BATCH, L)).cuda()
         with torch.inference_mode(), matmul_precision("float32"):
-            got = fk.fbank_cuda(wav, fb._B, fb._mel, **kw)
+            got = fk.fbank_cuda(wav, fb._packed, **kw)
             want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
             torch.cuda.synchronize()
             err = fbank_oracle_check(got.cpu().numpy(), want.cpu().numpy(),
                                      f"K1 vs plain at L = {L}")
-            ms = cuda_ms(lambda: fk.fbank_cuda(wav, fb._B, fb._mel, **kw))
+            ms = cuda_ms(lambda: fk.fbank_cuda(wav, fb._packed, **kw))
             plain = cuda_ms(lambda: fk.fbank_plain(wav, fb._B, fb._mel, **kw))
         T, M = got.shape[1], got.shape[2]
+        # the function's inputs (waveform, B, mel) read once, out written once
         n_bytes = 4 * (wav.numel() + fb._B.numel() + fb._mel.numel()
                        + got.numel())
         flops = 2 * BATCH * T * (cfg.frame_length * 2 * fk._NB + fk._NB * M)
-        b, by = bound_ms(n_bytes, flops)
+        # the route's rate: each fp32 product is TF32_PASSES TF32 products
+        b, by = bound_ms(n_bytes, TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
+        b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
         log(f"[K1 L={L}] out {tuple(got.shape)} max_abs_err {err:.3g} kernel "
-            f"{ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by})")
+            f"{ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by}; "
+            f"3xTF32) fp32-core bound {b32:.4f} ms; {b / ms:.1%} of the bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; "
+            f"{TF32_PASSES * flops / ms / 1e9 / rate:.1%} of the mma.sync rate")
         rows.append({"L": L, "out": list(got.shape), "max_abs_err": err,
                      "ms": ms, "plain_ms": plain, "bound_ms": b,
                      "bound_by": by})
@@ -233,8 +263,8 @@ def phase_k2(lengths, main_len: int) -> dict:
             if err > K2_MAX_ABS_ERR:
                 raise AssertionError(f"K2 {name} at L = {L}: max abs error "
                                      f"{err:.3g} > {K2_MAX_ABS_ERR}")
-            ms = cuda_ms(lambda: rk.res2_block_cuda(x, p, stride))
-            plain = cuda_ms(lambda: rk.res2_block_plain(x, p, stride))
+            ms = cuda_ms(lambda: rk.res2_block_cuda(x, p, stride), iters=5, runs=3)
+            plain = cuda_ms(lambda: rk.res2_block_plain(x, p, stride), iters=5, runs=3)
         w, cout = p.width, got.shape[1]
         pos = got.shape[0] * got.shape[2] * got.shape[3]
         flops = 2 * pos * (cin * 2 * w + 2 * 9 * w * w + 2 * w * cout
@@ -245,8 +275,8 @@ def phase_k2(lengths, main_len: int) -> dict:
         # stride 2 needs only the even rows and columns of x
         n_in = x.numel() // (stride * stride)
         n_bytes = 4 * (n_in + got.numel() + n_weights)
-        # the route's rate: each fp32 product is K2_TF32_PASSES TF32 products
-        b, by = bound_ms(n_bytes, K2_TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
+        # the route's rate: each fp32 product is TF32_PASSES TF32 products
+        b, by = bound_ms(n_bytes, TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
         b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
         log(f"[K2 L={L} {name}] x {tuple(x.shape)} -> {tuple(got.shape)} "
             f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
@@ -276,27 +306,52 @@ def phase_k2(lengths, main_len: int) -> dict:
             "library_ms": None, "shapes": rows}
 
 
+def _device_ms(fn, kernel: str, calls: int = 20) -> str:
+    """The device time per launch of the kernel named ``kernel`` over
+    ``calls`` calls of ``fn``, from torch.profiler's CUDA activity; "not
+    measured" when the trace holds no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = getattr(ev, "cuda_time_total", 0)
+        if kernel in ev.key and ev.count and total:
+            return f"{total / ev.count / 1e3:.4f} ms ({ev.count} launches traced)"
+    return "not measured (no device time in the trace)"
+
+
 def phase_k3() -> dict:
     import torch.nn.functional as nnf
 
     from speaker3d_tpu_torch.tools import probe_ops as po
 
-    # the probe tool's own path: it launches every probe, holds it against
-    # its plain version and times it; counts set to 0 just before, read
-    # just after
-    for probe in po.PROBES.values():
-        probe.run.launches = 0
-    results = []
-    if po.main([], results) != 0:
-        raise AssertionError("K3: the probe tool reported a failed probe")
-    launches = {key: probe.run.launches for key, probe in po.PROBES.items()}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"K3: a probe was not launched: {launches}")
+    # the probe tool's own path: one fused launch of all five probes, each
+    # output held against its plain version, the launch timed; the count
+    # set to 0 just before, read just after
+    po.probe_all.launches = 0
+    run = po.ToolRun()
+    if po.main([], run) != 0:
+        failed = run.error or [r.error for r in run.results if r.error]
+        raise AssertionError(f"K3: the probe tool failed: {failed}")
+    launches = po.probe_all.launches
+    if launches < 1:
+        raise AssertionError("K3: the fused probe launch never ran")
+    floor_ms = cuda_ms(po.empty_launch)
+    log(f"[K3 launch floor] empty kernel through the ctypes path "
+        f"{floor_ms:.4f} ms a launch")
 
-    by_key = {r.probe.key: r for r in results}
+    by_key = {r.probe.key: r for r in run.results}
     x, w9 = by_key["d"].args
     w2 = by_key["e"].args[1]
     f, t, w = x.shape
+    log(f"[K3 fused] device time of one launch (profiler): "
+        f"{_device_ms(lambda: po.probe_all(x, w9, w2), 'probe_all_kernel')}")
     # one PyTorch call per probe that computes the same function
     x_nchw = x.permute(2, 0, 1).unsqueeze(0)                  # [1, W, F, T]
     conv_w = w9.view(3, 3, w, w).permute(3, 2, 0, 1).contiguous()
@@ -318,26 +373,34 @@ def phase_k3() -> dict:
                   2 * n_x * 2 * w + n_x, PEAK_BF16_TC_FLOPS)}
     rows = []
     for key, r in by_key.items():
+        # the per-probe entry's own launch (not the tool's path)
+        ms = cuda_ms(lambda: r.probe.run(*r.args))
+        device = _device_ms(lambda: r.probe.run(*r.args), f"probe_{key}_kernel")
         plain_ms = cuda_ms(lambda: r.probe.plain(*r.args))
         lib_ms = cuda_ms(library[key]) if library[key] else None
         b, by = bound_ms(*work[key])
         log(f"[K3 {key}] {r.probe.name}: out {tuple(r.got.shape)} max_abs_err "
-            f"{r.max_abs_err:.3g} kernel {r.ms:.4f} ms plain {plain_ms:.4f} "
+            f"{r.max_abs_err:.3g} own launch {ms:.4f} ms (device {device}) "
+            f"plain {plain_ms:.4f} "
             f"ms library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-            f"bound {b:.6f} ms ({by}); launches in the tool's run "
-            f"{launches[key]}")
-        rows.append({"name": key, "ms": r.ms, "plain_ms": plain_ms,
+            f"bound {b:.6f} ms ({by})")
+        rows.append({"name": key, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": b, "bound_by": by,
-                     "max_abs_err": r.max_abs_err, "launches": launches[key]})
+                     "max_abs_err": r.max_abs_err})
+    bound = sum(r["bound_ms"] for r in rows)
+    log(f"[K3 fused] one launch of all five probes {run.ms:.4f} ms (launch "
+        f"floor {floor_ms:.4f} ms), plain versions together "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, bound {bound:.6f} ms; "
+        f"launches in the tool's run {launches}")
     return {"name": "probe_ops", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/probe_ops.cu",
             "replaces": "tools/probe_mosaic_ops.py:27",
-            "launches": sum(launches.values()),
+            "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # the five probes, one launch each
-            "ms": sum(r["ms"] for r in rows),
+            # the tool's fused launch against the five plain versions
+            "ms": run.ms,
             "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_ms": bound,
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                          else "operations"),
             # no one call computes all five (each row has its own)
@@ -537,9 +600,10 @@ def phase_pipeline(work: str) -> dict:
             with torch.inference_mode(), matmul_precision("high"):
                 got = embed(batch)
                 want = _plain_embed(model, fb, batch)
-                embed_ms = cuda_ms(lambda: embed(batch), warmup=2, iters=10)
+                embed_ms = cuda_ms(lambda: embed(batch), warmup=2, iters=2,
+                                   runs=3)
                 plain_ms = cuda_ms(lambda: _plain_embed(model, fb, batch),
-                                   warmup=2, iters=10)
+                                   warmup=2, iters=2, runs=3)
                 # the plain path runs every product as a torch op, so it
                 # counts them all
                 flops = _flops(lambda: _plain_embed(model, fb, batch))

@@ -41,7 +41,12 @@
 // What bounds them on the H100: nothing but the launch. Each moves < 100 KB
 // and does < 10 MFLOP, ~0.03 us at 3.35 TB/s against a launch of a few us.
 // They are one block per row of F (a, b, d) or per 16 or 64 flat rows
-// (c, e); the layouts, not the speed, are the point.
+// (c, e); the layouts, not the speed, are the point. So the tool runs all
+// five in one launch (s3d_probe_all: 111 blocks at F = 16, T = 50, one
+// wave), which pays the launch once; each probe keeps its own entry too.
+// s3d_probe_empty launches an empty kernel, the floor of a launch, and
+// s3d_probe_mma_rate measures the card's mma.sync TF32 rate, the ceiling of
+// the port's 3xTF32 kernels (fbank.cu, res2_block.cu).
 //
 // Plain C interface (bound with ctypes); every entry point returns
 // cudaGetLastError() right after its launch, or cudaErrorInvalidValue for a
@@ -51,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cstring>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -100,43 +107,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Each probe is a device body run by one block of THREADS threads, block
+// `blk` of the probe's grid, on `smem` (dynamic shared memory): its own
+// kernel runs it with blockIdx.x, the fused kernel with its block's index
+// within the probe's range.
+
 // a: one block per f; the [T, W] tile of x in shared memory, read back from
 // row 1 on (a word offset of W/2, 52 bytes at W = 26)
-__global__ void __launch_bounds__(THREADS)
-probe_a_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-               int T, int W2) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const uint32_t* xf = x + (size_t)blockIdx.x * T * W2;
+__device__ __forceinline__ void probe_a_body(const uint32_t* __restrict__ x,
+                                             uint32_t* __restrict__ out, int T,
+                                             int W2, int blk, uint32_t* smem) {
+  const uint32_t* xf = x + (size_t)blk * T * W2;
   for (int i = threadIdx.x; i < T * W2; i += THREADS) smem[i] = xf[i];
   __syncthreads();
   const bf162 two = __float2bfloat162_rn(2.f);
-  uint32_t* of = out + (size_t)blockIdx.x * (T - 2) * W2;
+  uint32_t* of = out + (size_t)blk * (T - 2) * W2;
   for (int i = threadIdx.x; i < (T - 2) * W2; i += THREADS)
     of[i] = as_u32(__hmul2(as_bf162(smem[W2 + i]), two));
 }
 
 // b: one block per f; x's rows stored into the shared tile from row 2 on
 // (104 bytes in at W = 26), rows 0-1 zeroed, then the tile copied out
-__global__ void __launch_bounds__(THREADS)
-probe_b_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-               int T, int W2) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const uint32_t* xf = x + (size_t)blockIdx.x * T * W2;
+__device__ __forceinline__ void probe_b_body(const uint32_t* __restrict__ x,
+                                             uint32_t* __restrict__ out, int T,
+                                             int W2, int blk, uint32_t* smem) {
+  const uint32_t* xf = x + (size_t)blk * T * W2;
   for (int i = threadIdx.x; i < (T - 2) * W2; i += THREADS)
     smem[2 * W2 + i] = xf[i];
   for (int i = threadIdx.x; i < 2 * W2; i += THREADS) smem[i] = 0u;
   __syncthreads();
-  uint32_t* of = out + (size_t)blockIdx.x * T * W2;
+  uint32_t* of = out + (size_t)blk * T * W2;
   for (int i = threadIdx.x; i < T * W2; i += THREADS) of[i] = smem[i];
 }
 
 // c: one block per C_ROWS rows of the flat [F*T, W] view; the last tile is
 // masked when C_ROWS does not divide F*T
-__global__ void __launch_bounds__(THREADS)
-probe_c_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-               int n_rows, int W2) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int r0 = blockIdx.x * C_ROWS;
+__device__ __forceinline__ void probe_c_body(const uint32_t* __restrict__ x,
+                                             uint32_t* __restrict__ out,
+                                             int n_rows, int W2, int blk,
+                                             uint32_t* smem) {
+  const int r0 = blk * C_ROWS;
   const int n = min(C_ROWS, n_rows - r0) * W2;
   const size_t base = (size_t)r0 * W2;
   for (int i = threadIdx.x; i < n; i += THREADS) smem[i] = x[base + i];
@@ -148,15 +158,17 @@ probe_c_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 
 // d: one block per f, one warp per 16 output rows (t). Shared memory holds
 // xp[f .. f+2] as three [T, W] planes of 52-byte rows (zero outside F) and
-// w9 transposed to [N_PAD][D_BLD] (B is "col": k contiguous per n).
-__global__ void __launch_bounds__(THREADS)
-probe_d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
-               bf16* __restrict__ out, int F, int T) {
-  extern __shared__ __align__(16) uint32_t smem[];
+// w9 transposed to [N_PAD][D_BLD] (B is "col": k contiguous per n). Warps
+// past the last output row load zeros and store nothing, but reach the
+// barrier with the rest of the block.
+__device__ __forceinline__ void probe_d_body(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w9,
+                                             bf16* __restrict__ out, int F,
+                                             int T, int blk, uint32_t* smem) {
   constexpr int W2 = PW / 2;
   uint32_t* xs = smem;                                  // [3][T][W2] words
   bf16* bt = reinterpret_cast<bf16*>(smem + 3 * T * W2);  // [D_NPAD][D_BLD]
-  const int f = blockIdx.x;
+  const int f = blk;
   const int To = T - 2;
   const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
   for (int i = threadIdx.x; i < 3 * T * W2; i += blockDim.x) {
@@ -213,14 +225,16 @@ probe_d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
 // e: E_WARPS m-tiles of 16 flat rows per block. Shared memory holds the
 // block's rows of x ([64][E_LD], K zero-padded to 32) and w2 transposed
 // ([56][E_LD], N zero-padded to 56).
-__global__ void __launch_bounds__(32 * E_WARPS)
-probe_e_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w2,
-               bf16* __restrict__ out, int n_rows) {
-  __shared__ __align__(16) uint32_t as32[E_WARPS * 16 * E_LD / 2];
-  __shared__ __align__(16) uint32_t bt32[E_NT * 8 * E_LD / 2];
+__device__ __forceinline__ void probe_e_body(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w2,
+                                             bf16* __restrict__ out,
+                                             int n_rows, int blk,
+                                             uint32_t* smem) {
+  uint32_t* as32 = smem;                                 // [64][E_LD] bf16
+  uint32_t* bt32 = smem + E_WARPS * 16 * E_LD / 2;       // [56][E_LD] bf16
   bf16* as = reinterpret_cast<bf16*>(as32);
   bf16* bt = reinterpret_cast<bf16*>(bt32);
-  const int r_blk = blockIdx.x * E_WARPS * 16;
+  const int r_blk = blk * E_WARPS * 16;
   const bf16 zero = __float2bfloat16_rn(0.f);
   for (int i = threadIdx.x; i < E_WARPS * 16 * E_LD; i += blockDim.x) {
     const int r = r_blk + i / E_LD, k = i % E_LD;
@@ -278,6 +292,112 @@ probe_e_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w2,
   }
 }
 
+constexpr int E_SMEM = (E_WARPS * 16 + E_NT * 8) * E_LD * 2;  // bytes
+
+// Shared-memory bytes of each probe at x [F, T, W].
+__host__ __device__ inline int smem_ab(int T, int W) { return T * W * 2; }
+__host__ __device__ inline int smem_c(int W) { return C_ROWS * W * 2; }
+__host__ __device__ inline int smem_d(int T) {
+  return 3 * T * PW * 2 + D_NPAD * D_BLD * 2;
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_a_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               int T, int W2) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  probe_a_body(x, out, T, W2, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_b_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               int T, int W2) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  probe_b_body(x, out, T, W2, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_c_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               int n_rows, int W2) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  probe_c_body(x, out, n_rows, W2, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
+               bf16* __restrict__ out, int F, int T) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  probe_d_body(x, w9, out, F, T, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(32 * E_WARPS)
+probe_e_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w2,
+               bf16* __restrict__ out, int n_rows) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  probe_e_body(x, w2, out, n_rows, blockIdx.x, smem);
+}
+
+// All five probes in one launch, at x [F, T, W]: blocks [0, F) run a, the
+// next F b, the next ceil(F T / C_ROWS) c, the next F d, the last
+// ceil(F T / 64) e, each block one probe's body (a branch uniform over the
+// block, so every barrier is reached by all its threads). THREADS threads
+// and the largest shared memory any probe needs.
+__global__ void __launch_bounds__(THREADS)
+probe_all_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
+                 const bf16* __restrict__ w2, bf16* __restrict__ out_a,
+                 bf16* __restrict__ out_b, bf16* __restrict__ out_c,
+                 bf16* __restrict__ out_d, bf16* __restrict__ out_e, int F,
+                 int T) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int W2 = PW / 2;
+  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
+  const int n_rows = F * T;
+  int blk = blockIdx.x;
+  if (blk < F) {
+    probe_a_body(x32, reinterpret_cast<uint32_t*>(out_a), T, W2, blk, smem);
+    return;
+  }
+  blk -= F;
+  if (blk < F) {
+    probe_b_body(x32, reinterpret_cast<uint32_t*>(out_b), T, W2, blk, smem);
+    return;
+  }
+  blk -= F;
+  const int nc = (n_rows + C_ROWS - 1) / C_ROWS;
+  if (blk < nc) {
+    probe_c_body(x32, reinterpret_cast<uint32_t*>(out_c), n_rows, W2, blk, smem);
+    return;
+  }
+  blk -= nc;
+  if (blk < F) {
+    probe_d_body(x, w9, out_d, F, T, blk, smem);
+    return;
+  }
+  probe_e_body(x, w2, out_e, n_rows, blk - F, smem);
+}
+
+__global__ void empty_kernel() {}
+
+// The rate at which the card runs mma.sync.m16n8k8 TF32 (the instruction of
+// the port's 3xTF32 kernels): each warp runs `iters` rounds of MMA_CHAINS
+// independent products on registers, with no memory traffic in the loop;
+// out[thread] keeps every sum live.
+constexpr int MMA_CHAINS = 8;
+
+__global__ void mma_rate_kernel(float* __restrict__ out, int iters) {
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t a[4] = {0x3f800000u ^ (lane << 13), 0x3f000000u, 0x3e800000u, 0x3f400000u};
+  const uint32_t b0 = 0x3c000000u ^ (lane << 13), b1 = 0x3c800000u;
+  float d[MMA_CHAINS][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < MMA_CHAINS; ++j) s3d::mma(d[j], a, b0, b1);
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < MMA_CHAINS; ++j) sum += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[(size_t)blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
 cudaError_t set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -295,7 +415,7 @@ const char* s3d_errstr(int code) {
 // x [F, T, W], out [F, T-2, W]; bf16, contiguous, W even, T >= 3.
 int s3d_probe_a(const void* x, void* out, int F, int T, int W, void* stream) {
   if (F < 1 || T < 3 || W < 2 || W % 2) return (int)cudaErrorInvalidValue;
-  const int smem = T * W * 2;
+  const int smem = smem_ab(T, W);
   cudaError_t err = set_smem((const void*)probe_a_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   probe_a_kernel<<<F, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -306,7 +426,7 @@ int s3d_probe_a(const void* x, void* out, int F, int T, int W, void* stream) {
 // x [F, T, W], out [F, T, W]; bf16, contiguous, W even, T >= 3.
 int s3d_probe_b(const void* x, void* out, int F, int T, int W, void* stream) {
   if (F < 1 || T < 3 || W < 2 || W % 2) return (int)cudaErrorInvalidValue;
-  const int smem = T * W * 2;
+  const int smem = smem_ab(T, W);
   cudaError_t err = set_smem((const void*)probe_b_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   probe_b_kernel<<<F, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -318,7 +438,7 @@ int s3d_probe_b(const void* x, void* out, int F, int T, int W, void* stream) {
 int s3d_probe_c(const void* x, void* out, int F, int T, int W, void* stream) {
   if (F < 1 || T < 1 || W < 2 || W % 2) return (int)cudaErrorInvalidValue;
   const int n_rows = F * T;
-  probe_c_kernel<<<(n_rows + C_ROWS - 1) / C_ROWS, THREADS, C_ROWS * W * 2,
+  probe_c_kernel<<<(n_rows + C_ROWS - 1) / C_ROWS, THREADS, smem_c(W),
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), n_rows,
       W / 2);
@@ -331,7 +451,7 @@ int s3d_probe_d(const void* x, const void* w9, void* out, int F, int T, int W,
                 void* stream) {
   if (F < 1 || T < 3 || T - 2 > 16 * (THREADS / 32) || W != PW)
     return (int)cudaErrorInvalidValue;
-  const int smem = 3 * T * PW * 2 + D_NPAD * D_BLD * 2;
+  const int smem = smem_d(T);
   cudaError_t err = set_smem((const void*)probe_d_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int warps = (T - 2 + 15) / 16;
@@ -348,9 +468,48 @@ int s3d_probe_e(const void* x, const void* w2, void* out, int F, int T, int W,
   const int n_rows = F * T;
   const int rows_per_block = 16 * E_WARPS;
   probe_e_kernel<<<(n_rows + rows_per_block - 1) / rows_per_block,
-                   32 * E_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+                   32 * E_WARPS, E_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w2),
       static_cast<bf16*>(out), n_rows);
+  return (int)cudaGetLastError();
+}
+
+// x [F, T, 26], w9 [234, 26], w2 [26, 52]; out_a, out_d [F, T-2, 26],
+// out_b, out_c, out_e [F, T, 26]; bf16, contiguous. The shapes every
+// per-probe entry takes: 3 <= T <= 66.
+int s3d_probe_all(const void* x, const void* w9, const void* w2, void* out_a,
+                  void* out_b, void* out_c, void* out_d, void* out_e, int F,
+                  int T, int W, void* stream) {
+  if (F < 1 || T < 3 || T - 2 > 16 * (THREADS / 32) || W != PW)
+    return (int)cudaErrorInvalidValue;
+  const int smem = max(max(smem_ab(T, W), smem_c(W)), max(smem_d(T), E_SMEM));
+  cudaError_t err = set_smem((const void*)probe_all_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_rows = F * T;
+  const int blocks = 3 * F + (n_rows + C_ROWS - 1) / C_ROWS +
+                     (n_rows + 16 * E_WARPS - 1) / (16 * E_WARPS);
+  probe_all_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w9),
+      static_cast<const bf16*>(w2), static_cast<bf16*>(out_a),
+      static_cast<bf16*>(out_b), static_cast<bf16*>(out_c),
+      static_cast<bf16*>(out_d), static_cast<bf16*>(out_e), F, T);
+  return (int)cudaGetLastError();
+}
+
+// blocks x threads threads, each warp iters x MMA_CHAINS mma.sync TF32
+// products; out [blocks * threads] fp32.
+int s3d_probe_mma_rate(void* out, int blocks, int threads, int iters,
+                       void* stream) {
+  if (blocks < 1 || threads < 32 || threads > 1024 || threads % 32 || iters < 1)
+    return (int)cudaErrorInvalidValue;
+  mma_rate_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel, one warp: the floor of a launch through this interface.
+int s3d_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

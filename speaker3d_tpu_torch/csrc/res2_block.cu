@@ -68,7 +68,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using s3d::cp_async16;
+using s3d::cp_async_commit;
+using s3d::cp_async_wait1;
+using s3d::mma;
+using s3d::split;
 
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
@@ -78,44 +86,6 @@ constexpr int MAX_SMEM = 232448;  // bytes of shared memory one block may use
 
 __device__ __forceinline__ float relu20(float v) {
   return fminf(fmaxf(v, 0.f), 20.f);
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small + O(2^-22 |v|); big's low 13 bits are cleared, so v - big
-// is exact and the tensor cores see big as it is.
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(v) & 0xffffe000u;
-  small = tf32_rna(v - __uint_as_float(big));
-}
-
-// d += a * b, m16n8k8, TF32 in, fp32 accumulate. Lane (g, t) = (lane/4,
-// lane%4): a = {(g, t), (g+8, t), (g, t+4), (g+8, t+4)} of [row, k];
-// b = {(k t, n g), (k t+4, n g)}; d = {(g, 2t), (g, 2t+1), (g+8, 2t),
-// (g+8, 2t+1)} of [row, n].
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 __host__ __device__ inline int round8(int n) { return (n + 7) / 8 * 8; }

@@ -27,19 +27,23 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of one call of ``fn`` on the current CUDA stream
-    (CUDA events around each call, after ``warmup`` untimed calls)."""
+def cuda_ms(fn, warmup: int = 3, iters: int = 20, runs: int = 5) -> float:
+    """Milliseconds per call of ``fn`` on the current CUDA stream: ``iters``
+    back-to-back calls between one pair of CUDA events, divided by
+    ``iters``; the median of ``runs`` such runs, after ``warmup`` untimed
+    calls. A call that is short against its launch thus measures how fast
+    the card takes launches, not the host's time around one call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)

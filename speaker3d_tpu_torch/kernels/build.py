@@ -8,8 +8,8 @@ C interface (no PyTorch headers, so a build takes seconds):
 
 The build runs at first use, from the repository's sources only, into
 ``speaker3d_tpu_torch/_build/`` (listed in ``.gitignore``). The file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. ``build()`` starts one ``nvcc`` per
+carries a hash of the source, the headers in ``csrc/`` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. ``build()`` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 """
 
@@ -44,8 +44,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name carries a hash of the source, of every
+    header in ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            digest.update(fn.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -6,7 +6,8 @@ contract (``torchaudio.compliance.kaldi.fbank(..., dither=0)`` with
 and the padded rDFT into one analysis matrix ``B``, computed in float64 with
 numpy and stored as float32 tensors. ``KaldiFbank`` runs the spectral
 pipeline through ``ops/kernels/fbank_kernel.py``: the CUDA kernel on the
-card, its plain version (``Tensor.unfold`` framing) on the CPU.
+card (B and mel split and packed for it once, at construction), its plain
+version (``Tensor.unfold`` framing) on the CPU.
 """
 
 from __future__ import annotations
@@ -165,12 +166,13 @@ class KaldiFbank:
         self.cfg = cfg
         self.mean_norm = mean_norm
         self.device = resolve_device(device)
-        mel = mel_banks(cfg)
-        if self.device.type == "cuda":
-            fbank_kernel.check_mel_for_kernel(mel)
         self._B = torch.as_tensor(analysis_matrix(cfg), dtype=torch.float32,
                                   device=self.device)
-        self._mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        self._mel = torch.as_tensor(mel_banks(cfg), dtype=torch.float32,
+                                    device=self.device)
+        # the kernel's operands, split and packed once (CUDA only)
+        self._packed = (fbank_kernel.pack_fbank(self._B, self._mel)
+                        if self.device.type == "cuda" else None)
 
     def __call__(self, wav, mean_norm: bool | None = None):
         """wav: float tensor [..., num_samples] on this frontend's device ->
@@ -180,7 +182,7 @@ class KaldiFbank:
         lead = wav.shape[:-1]
         feats = fbank_kernel.fbank_features(
             wav.reshape(-1, wav.shape[-1]).to(torch.float32).contiguous(),
-            self._B, self._mel,
+            self._B, self._mel, self._packed,
             frame_length=self.cfg.frame_length,
             frame_shift=self.cfg.frame_shift,
             use_power=self.cfg.use_power, use_log=self.cfg.use_log_fbank)

@@ -4,8 +4,10 @@ The counterpart of ``speaker3d_tpu/ops/pallas/fbank_kernel.py``. Per frame:
 ``frame @ B`` (DC removal, pre-emphasis, window and padded rDFT folded into
 one matrix), power spectrum, ``@ mel``, ``log(max(., eps))``. The CUDA
 kernel (``csrc/fbank.cu``) reads its frames straight from the waveform at
-stride ``frame_shift``; the plain version frames with ``Tensor.unfold``.
-Mean-norm stays outside, as in the TPU kernel's wrapper.
+stride ``frame_shift`` and runs both products on the tensor cores in 3xTF32,
+with B and mel split and packed once by ``pack_fbank``; the plain version
+frames with ``Tensor.unfold``. Mean-norm stays outside, as in the TPU
+kernel's wrapper.
 
 ``fbank_features`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; ``fbank_features.launches`` counts the launches.
@@ -14,14 +16,17 @@ kernel for a CUDA tensor; ``fbank_features.launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from speaker3d_tpu_torch.kernels.build import check, library
+from speaker3d_tpu_torch.ops.kernels.tf32 import pack_b, round8
 
 _EPSILON = float(np.finfo(np.float32).eps)
-_NB = 256  # rDFT bins the kernel computes (csrc/fbank.cu NB)
+_NB = 256  # rDFT bins the kernel computes (csrc/fbank.cu: 64 n-tiles of B)
+_MAX_MEL = 80  # mel bins the kernel takes (csrc/fbank.cu MAX_NMT n-tiles)
 
 
 def fbank_plain(wav, B, mel, *, frame_length: int, frame_shift: int,
@@ -47,9 +52,7 @@ def _lib():
     if not getattr(lib, "_s3d_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.s3d_fbank_f32.restype = i
-        lib.s3d_fbank_f32.argtypes = [p, p, p, p] + [i] * 9 + [p]
-        lib.s3d_fbank_smem_bytes.restype = i
-        lib.s3d_fbank_smem_bytes.argtypes = [i, i]
+        lib.s3d_fbank_f32.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib._s3d_bound = True
     return lib
 
@@ -62,46 +65,82 @@ def check_mel_for_kernel(mel) -> None:
                          "a zero Nyquist row (512-point rDFT, Kaldi banks)")
 
 
-def fbank_cuda(wav, B, mel, *, frame_length: int, frame_shift: int,
-               use_power: bool = True, use_log: bool = True):
-    """Launch csrc/fbank.cu on wav's CUDA device (mel checked by the
-    caller with ``check_mel_for_kernel``)."""
-    for name, t in (("wav", wav), ("B", B), ("mel", mel)):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"fbank kernel: {name} must be a contiguous "
-                             f"float32 CUDA tensor")
+@dataclass(frozen=True)
+class PackedFbank:
+    """The kernel's operands, 3xTF32 B fragments (``tf32.pack_b``)."""
+
+    dft: torch.Tensor  # [ceil(L / 8), 64, 32, 4]: B's bins 0..255, columns (re_k, im_k)
+    mel: torch.Tensor  # [32, ceil(M / 8), 32, 4]: mel rows 0..255
+    n_mel: int
+
+
+def pack_fbank(B, mel) -> PackedFbank:
+    """Split and pack B [L, 2R] and mel [R, M] (R = 257, zero Nyquist row)
+    for the kernel, on their device: B's columns of bins 0..255
+    interleaved as (re_0, im_0, re_1, ...), so that an mma C fragment holds
+    a bin's real and imaginary parts in one lane."""
+    check_mel_for_kernel(mel)
+    if mel.shape[1] > _MAX_MEL:
+        raise ValueError(f"the fbank kernel takes at most {_MAX_MEL} mel "
+                         f"bins, got {mel.shape[1]}")
+    R = mel.shape[0]
+    B = torch.as_tensor(B, dtype=torch.float32)
+    mel = torch.as_tensor(mel, dtype=torch.float32)
+    inter = torch.stack([B[:, :_NB], B[:, R:R + _NB]], dim=-1).reshape(
+        B.shape[0], 2 * _NB)
+    return PackedFbank(pack_b(inter), pack_b(mel[:_NB]), mel.shape[1])
+
+
+def fbank_cuda(wav, packed: PackedFbank, *, frame_length: int,
+               frame_shift: int, use_power: bool = True,
+               use_log: bool = True):
+    """Launch csrc/fbank.cu on wav's CUDA device with operands from
+    ``pack_fbank``."""
+    if not wav.is_cuda or wav.dtype != torch.float32 or not wav.is_contiguous():
+        raise ValueError("fbank kernel: wav must be a contiguous float32 CUDA "
+                         "tensor")
     if wav.ndim != 2:
         raise ValueError(f"fbank kernel: wav must be [batch, n], got "
                          f"{tuple(wav.shape)}")
-    R = mel.shape[0]
-    if B.shape != (frame_length, 2 * R):
-        raise ValueError(f"fbank kernel: B is {tuple(B.shape)}, expected "
-                         f"({frame_length}, {2 * R})")
+    M = packed.n_mel
+    want = {"dft": (round8(frame_length) // 8, 2 * _NB // 8, 32, 4),
+            "mel": (_NB // 8, round8(M) // 8, 32, 4)}
+    for name, shape in want.items():
+        t = getattr(packed, name)
+        if (t.device != wav.device or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"fbank kernel: packed {name} must be a "
+                             f"contiguous float32 {shape} tensor on wav's "
+                             f"device (pack_fbank)")
     batch, n = wav.shape
     n_frames = 1 + (n - frame_length) // frame_shift if n >= frame_length else 0
-    out = torch.empty((batch, n_frames, mel.shape[1]), dtype=torch.float32,
+    out = torch.empty((batch, n_frames, M), dtype=torch.float32,
                       device=wav.device)
     if batch == 0 or n_frames == 0:
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(wav.device).cuda_stream
-    rc = lib.s3d_fbank_f32(wav.data_ptr(), B.data_ptr(), mel.data_ptr(),
-                           out.data_ptr(), batch, n, n_frames, frame_length,
-                           frame_shift, R, mel.shape[1], int(use_power),
-                           int(use_log), stream)
+    rc = lib.s3d_fbank_f32(wav.data_ptr(), packed.dft.data_ptr(),
+                           packed.mel.data_ptr(), out.data_ptr(), batch, n,
+                           n_frames, frame_shift, want["dft"][0], M,
+                           int(use_power), int(use_log), stream)
     check(lib, rc, "s3d_fbank_f32")
     fbank_features.launches += 1
     return out
 
 
-def fbank_features(wav, B, mel, *, frame_length: int, frame_shift: int,
-                   use_power: bool = True, use_log: bool = True):
-    """[batch, n] float32 -> [batch, T, M]: the kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+def fbank_features(wav, B, mel, packed=None, *, frame_length: int,
+                   frame_shift: int, use_power: bool = True,
+                   use_log: bool = True):
+    """[batch, n] float32 -> [batch, T, M]: the kernel on a CUDA tensor
+    (``packed`` from ``pack_fbank``), the plain version on a CPU tensor."""
     kw = dict(frame_length=frame_length, frame_shift=frame_shift,
               use_power=use_power, use_log=use_log)
     if wav.is_cuda:
-        return fbank_cuda(wav, B, mel, **kw)
+        if packed is None:
+            raise ValueError("fbank: a CUDA tensor needs the packed operands "
+                             "(pack_fbank)")
+        return fbank_cuda(wav, packed, **kw)
     if wav.device.type != "cpu":
         raise ValueError(f"fbank: unsupported device {wav.device}")
     return fbank_plain(wav, B, mel, **kw)

@@ -9,7 +9,7 @@ shortcut (1x1 conv + BN, or identity), Hardtanh(0, 20). The CUDA kernel
 (``csrc/res2_block.cu``) takes NCHW activations, reads the even rows and
 columns itself when the stride is 2, and runs every contraction on the
 tensor cores in 3xTF32 (fp32-level error) with weights that the fold splits
-(``tf32_split``) and packs into fragment order (``pack_b``) once.
+and packs into fragment order once (``ops/kernels/tf32.py``).
 
 ``res2_block`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; ``res2_block.launches`` counts the launches.
@@ -26,38 +26,7 @@ import torch.nn.functional as F
 
 from speaker3d_tpu_torch.kernels.build import check, library
 from speaker3d_tpu_torch.models.common import relu20
-
-
-def tf32_split(a: torch.Tensor):
-    """(big, small) with big = rna_tf32(a), small = rna_tf32(a - big): the
-    operand split of 3xTF32, as ``cvt.rna.tf32.f32`` rounds (to nearest,
-    ties away from zero, low 13 mantissa bits cleared)."""
-
-    def rna(v):
-        bits = v.float().contiguous().view(torch.int32)
-        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-    big = rna(a)
-    return big, rna(a.float() - big)
-
-
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def pack_b(kmat: torch.Tensor) -> torch.Tensor:
-    """A K-major weight [K, N] as 3xTF32 ``mma.m16n8k8`` B fragments:
-    [Kp/8, Np/8, 32, 4] with K and N zero-padded to multiples of 8 and, for
-    k-step ks, n-tile nt and lane 4g + t, (b0 big, b1 big, b0 small, b1
-    small) with b0 = W[8 ks + t, 8 nt + g] and b1 = W[8 ks + t + 4, 8 nt + g]."""
-    k, n = kmat.shape
-    m = kmat.new_zeros((_round8(k), _round8(n)), dtype=torch.float32)
-    m[:k, :n] = kmat
-    # [ks, j, t, nt, g] with k = 8 ks + 4 j + t -> [ks, nt, g, t, j]
-    frag = lambda v: v.view(m.shape[0] // 8, 2, 4, m.shape[1] // 8, 8).permute(
-        0, 3, 4, 2, 1).reshape(m.shape[0] // 8, m.shape[1] // 8, 32, 2)
-    big, small = tf32_split(m)
-    return torch.cat([frag(big), frag(small)], dim=-1).contiguous()
+from speaker3d_tpu_torch.ops.kernels.tf32 import pack_b, round8
 
 
 @dataclass(frozen=True)
@@ -165,7 +134,7 @@ def res2_block_cuda(x, p: FoldedRes2Block, stride: int = 1):
     if p.p_wsc is not None:
         want["p_wsc"] = (cin, cout)
     for name, (k, n) in want.items():
-        if getattr(p, name).shape != (_round8(k) // 8, _round8(n) // 8, 32, 4):
+        if getattr(p, name).shape != (round8(k) // 8, round8(n) // 8, 32, 4):
             raise ValueError(f"res2 kernel: {name} is not packed for "
                              f"K = {k}, N = {n}")
     weights = [getattr(p, name) for name in want] + [p.b1, p.bc1, p.bc2, p.b3]

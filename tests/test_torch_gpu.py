@@ -58,12 +58,67 @@ def test_fbank_kernel_matches_plain(cuda, n):
     kw = dict(frame_length=400, frame_shift=160)
     launches = fk.fbank_features.launches
     with matmul_precision("float32"):
-        got = fk.fbank_features(wav, fb._B, fb._mel, **kw)
+        got = fk.fbank_features(wav, fb._B, fb._mel, fb._packed, **kw)
         want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
     torch.cuda.synchronize()
     assert fk.fbank_features.launches == launches + 1
     assert got.shape == want.shape == (5, 1 + (n - 400) // 160, 80)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _oracle_ok(got, want) -> bool:
+    """The Kaldi-oracle thresholds of tests/test_fbank_ref_oracle.py."""
+    diff = (got - want).abs()
+    strong = want > want.amax(dim=-1, keepdim=True) - 8.0
+    return bool(diff[strong].max() < 5e-4 and diff.max() < 2e-2
+                and diff.mean() < 1e-3)
+
+
+# the path's batches (on 132 SMs the launch picks blocks of 5, 10 and 12
+# m-tiles there, the 5 with two warps each), one file alone, a ragged last
+# tile, and blocks of 8 m-tiles x 2 warps (132 rows of 256 frames)
+@pytest.mark.parametrize("batch,n", [(64, 24000), (64, 48000), (64, 120000),
+                                     (1, 48000), (1, 960000), (3, 41000),
+                                     (132, 41200)])
+def test_fbank_kernel_at_the_path_batches(cuda, batch, n):
+    rng = np.random.default_rng(batch + n)
+    wav = torch.from_numpy((rng.standard_normal((batch, n)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    fb = KaldiFbank(FbankConfig(), device=cuda)
+    kw = dict(frame_length=400, frame_shift=160)
+    with matmul_precision("float32"):
+        got = fk.fbank_cuda(wav, fb._packed, **kw)
+        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _oracle_ok(got, want)
+
+
+@pytest.mark.parametrize("use_power,use_log", [(False, True), (True, False)])
+def test_fbank_kernel_options_match_plain(cuda, use_power, use_log):
+    wav = torch.from_numpy((np.random.default_rng(7).standard_normal((4, 24000))
+                            * 0.1).astype(np.float32)).to(cuda)
+    fb = KaldiFbank(FbankConfig(), device=cuda)
+    kw = dict(frame_length=400, frame_shift=160, use_power=use_power,
+              use_log=use_log)
+    with matmul_precision("float32"):
+        got = fk.fbank_cuda(wav, fb._packed, **kw)
+        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fbank_kernel_needs_the_packed_operands(cuda):
+    fb = KaldiFbank(FbankConfig(), device=cuda)
+    wav = torch.zeros((1, 4000), device=cuda)
+    launches = fk.fbank_features.launches
+    with pytest.raises(ValueError):
+        fk.fbank_features(wav, fb._B, fb._mel, None, frame_length=400,
+                          frame_shift=160)
+    with pytest.raises(ValueError):  # packed for another frame length
+        fk.fbank_cuda(wav, fb._packed, frame_length=480, frame_shift=160)
+    assert fk.fbank_features.launches == launches
 
 
 @pytest.mark.parametrize("cin,planes,stride,f,t", [
@@ -141,3 +196,40 @@ def test_probe_kernel_matches_plain(cuda, key):
     torch.cuda.synchronize()
     assert probe.run.launches == launches + 1
     assert got.is_cuda and probe_ops.within_tolerance(key, got, want)
+
+
+def test_probe_all_matches_plain_in_one_launch(cuda):
+    inputs = probe_ops.make_inputs(cuda, seed=3)
+    launches = probe_ops.probe_all.launches
+    per_probe = {k: p.run.launches for k, p in probe_ops.PROBES.items()}
+    outs = probe_ops.probe_all(inputs["x"], inputs["w9"], inputs["w2"])
+    torch.cuda.synchronize()
+    assert probe_ops.probe_all.launches == launches + 1
+    assert per_probe == {k: p.run.launches for k, p in probe_ops.PROBES.items()}
+    for key, probe in probe_ops.PROBES.items():
+        want = probe.plain(*probe.args(inputs))
+        assert outs[key].is_cuda and probe_ops.within_tolerance(key, outs[key], want)
+
+
+@pytest.mark.parametrize("f,t,w", [(4, 50, 24), (4, 70, 26)])
+def test_probe_all_refuses_a_shape_without_a_launch(cuda, f, t, w):
+    x = torch.zeros((f, t, w), dtype=torch.bfloat16, device=cuda)
+    w9 = torch.zeros((9 * w, w), dtype=torch.bfloat16, device=cuda)
+    w2 = torch.zeros((w, 2 * w), dtype=torch.bfloat16, device=cuda)
+    launches = probe_ops.probe_all.launches
+    with pytest.raises(RuntimeError, match="s3d_probe_all"):
+        probe_ops.probe_all(x, w9, w2)
+    assert probe_ops.probe_all.launches == launches
+
+
+def test_probe_tool_runs_one_fused_launch(cuda, capsys):
+    run = probe_ops.ToolRun()
+    launches = probe_ops.probe_all.launches
+    assert probe_ops.main([], run) == 0
+    # one checked launch, then the timed ones
+    assert probe_ops.probe_all.launches > launches
+    assert run.ms is not None and run.ms > 0
+    assert [r.probe.key for r in run.results] == list("abcde")
+    assert all(not r.error for r in run.results)
+    probe_ops.empty_launch()
+    torch.cuda.synchronize()

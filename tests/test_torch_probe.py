@@ -69,15 +69,28 @@ def test_plain_probe_matches_tpu_probe(tpu_probes, key):
 
 
 def test_probe_tool_runs_on_cpu(capsys):
-    results = []
-    assert probe_ops.main(["--device", "cpu"], results) == 0
+    run = probe_ops.ToolRun()
+    launches = probe_ops.probe_all.launches
+    assert probe_ops.main(["--device", "cpu"], run) == 0
+    assert probe_ops.probe_all.launches == launches  # CPU: no kernel
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[1][0] for ln in lines] == list("abcde")
     assert all(ln.startswith("[OK]   ") and "sum=" in ln for ln in lines)
-    assert [r.probe.key for r in results] == list("abcde")
-    for r in results:
-        assert not r.error and r.ms is None
+    assert [r.probe.key for r in run.results] == list("abcde")
+    assert run.ms is None and not run.error
+    for r in run.results:
+        assert not r.error
         assert r.max_abs_err == 0 and torch.equal(r.got, r.want)
+
+
+def test_probe_all_on_cpu_is_the_five_plain_versions():
+    inputs = probe_ops.make_inputs("cpu", seed=4)
+    outs = probe_ops.probe_all(inputs["x"], inputs["w9"], inputs["w2"])
+    assert list(outs) == list("abcde")
+    for key, probe in probe_ops.PROBES.items():
+        assert torch.equal(outs[key], probe.plain(*probe.args(inputs)))
+    with pytest.raises(ValueError):  # the fused wrapper takes CUDA only
+        probe_ops.probe_all_cuda(inputs["x"], inputs["w9"], inputs["w2"])
 
 
 def test_tolerance_rejects_a_wrong_result():

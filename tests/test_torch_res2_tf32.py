@@ -1,7 +1,7 @@
 """The 3xTF32 operands of the port's Res2-block kernel, on the CPU.
 
-``res2_block_kernel.tf32_split`` and ``pack_b`` prepare the weights that
-csrc/res2_block.cu multiplies on the tensor cores. The block's 3xTF32
+``ops/kernels/tf32.py``'s ``tf32_split`` and ``pack_b`` prepare the weights
+that csrc/res2_block.cu multiplies on the tensor cores. The block's 3xTF32
 numerics are emulated here with F.conv2d on split operands (three terms, the
 small cross terms first) and held against the JAX package's Pallas kernel in
 interpret mode, at the tolerance of tests/test_torch_res2.py; ``res2_block``
@@ -19,6 +19,7 @@ from speaker3d_tpu.ops.pallas.res2_block_kernel import (
     fold_res2_block as jax_fold, res2_block_fused)
 from speaker3d_tpu_torch.models.common import relu20
 from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+from speaker3d_tpu_torch.ops.kernels import tf32
 from tests.test_torch_res2 import _block_weights
 
 
@@ -38,7 +39,7 @@ def _unpack_b(packed):
 def test_tf32_split(scale):
     a = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
                          .astype(np.float32) * scale)
-    big, small = rk.tf32_split(a)
+    big, small = tf32.tf32_split(a)
     # big is a TF32 value: its low 13 mantissa bits are zero
     assert int((big.view(torch.int32) & 0x1FFF).abs().max()) == 0
     assert int((small.view(torch.int32) & 0x1FFF).abs().max()) == 0
@@ -51,7 +52,7 @@ def test_tf32_split(scale):
 def test_tf32_split_rounds_ties_away_from_zero():
     # 1 + 2^-11 lies halfway between two TF32 values: rna rounds it up
     a = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
-    big, _ = rk.tf32_split(a)
+    big, _ = tf32.tf32_split(a)
     torch.testing.assert_close(big, torch.tensor([1 + 2.0 ** -10,
                                                   -(1 + 2.0 ** -10), 1.0]),
                                rtol=0, atol=0)
@@ -65,7 +66,7 @@ def test_pack_b_fragments_and_padding(w, which):
             "project": (2 * w, cout)}[which]
     kmat = torch.from_numpy(np.random.default_rng(w).standard_normal((k, n))
                             .astype(np.float32))
-    packed = rk.pack_b(kmat)
+    packed = tf32.pack_b(kmat)
     kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
     assert packed.shape == (kp // 8, np_ // 8, 32, 4)
     # unpacking gives back the K-major weight, zero in the padding
@@ -77,7 +78,7 @@ def test_pack_b_fragments_and_padding(w, which):
     # b0 = W[8 ks + t, 8 nt + g], b1 = W[8 ks + t + 4, 8 nt + g], big then small
     padded = torch.zeros((kp, np_))
     padded[:k, :n] = kmat
-    big, small = rk.tf32_split(padded)
+    big, small = tf32.tf32_split(padded)
     for ks, nt, g, t in [(0, 0, 0, 0), (kp // 8 - 1, np_ // 8 - 1, 7, 3),
                          (kp // 16, 0, 3, 2)]:
         lane = packed[ks, nt, 4 * g + t]
@@ -98,8 +99,8 @@ def test_fold_packs_every_weight():
 
 def _conv_3xtf32(x, w, b=None, **kw):
     """F.conv2d in 3xTF32: a_s*w_b + a_b*w_s + a_b*w_b on split operands."""
-    xb, xs = rk.tf32_split(x)
-    wb, ws = rk.tf32_split(w)
+    xb, xs = tf32.tf32_split(x)
+    wb, ws = tf32.tf32_split(w)
     out = F.conv2d(xs, wb, **kw) + F.conv2d(xb, ws, **kw) + F.conv2d(xb, wb, **kw)
     return out if b is None else out + b[:, None, None]
 
