@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's diarization main path on one GPU.
+"""Drive the PyTorch/CUDA port's diarization and speaker-verification paths
+on one GPU.
 
     python3 chip_smoke.py
 
@@ -17,27 +18,48 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    call; then, at every L of those calls and at 24,000 (1.5 s), one batch
    of 64 windows embedded through the kernels against the plain functions
    on the card (cosine >= 0.9999);
-4. K1 (fbank) on [64, L] for each of those L against its plain version on
-   the card, with the Kaldi-oracle thresholds of the CPU tests; kernel and
-   plain times, the bound at the 3xTF32 tensor-core rate (the fp32
-   CUDA-core bound, the share of the bound reached and the share of the
-   card's measured mma.sync TF32 rate beside it);
-5. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
-   at each L (B = 64) against its plain version, fp32 with TF32 off,
-   rtol = atol = 1e-3 and max abs error <= 1e-4; times, the bound at the
-   3xTF32 tensor-core rate (the fp32 CUDA-core bound beside it) and the
-   share of the bound reached;
-6. K3 (the five layout probes): the probe tool's own run on the card, one
+4. the port's speaker-verification CLIs on a seeded synthetic wav.scp of
+   nine utterances from 0.02 s (shorter than a frame) to 95 s (past the
+   90 s cap), with the 17.8M model: ``extract`` chunked to a Kaldi ark,
+   chunked with duration buckets to npz, and exact; ``infer_sv`` on one
+   pair; ``infer_sv_batch`` on a wav list that names one missing file;
+   ``extract`` chunked on a seeded 12,800 s corpus (20 full [64, 160000]
+   batches, the throughput run); ``compute_score_metrics`` on a trial list
+   over the ark. Launch counts per run (K1 > 0, or the exact number of
+   embed calls, and K2 7x K1), every output finite; against the plain
+   functions on the card at cosine >= 0.9999: the chunked and bucketed
+   embeddings (each utterance's plan embedded chunk by chunk), the exact
+   and ``infer_sv`` ones (each whole utterance at batch 1), and one
+   [64, 160000] batch; ``infer_sv_batch`` against the chunked ``extract``
+   run, each printed score against the host's float64 cosine to 1e-5; the
+   corpus run's throughput in audio-seconds per second;
+5. K1 (fbank) on [64, L] for each of those L and 160,000, and on [1,
+   1520000] (the 95 s utterance at batch 1), against its plain version on
+   the card, with the Kaldi-oracle thresholds of the CPU tests, and at the
+   other windows and mel widths it takes (8 kHz [64, 80000], 48 kHz [64,
+   480000], M = 64); kernel and plain times, the bound at the 3xTF32
+   tensor-core rate (the fp32 CUDA-core bound, the share of the bound
+   reached and the share of the card's measured mma.sync TF32 rate beside
+   it);
+6. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
+   at each of those L (B = 64) and at the 95 s utterance (B = 1, 9,498
+   frames) against its plain version, fp32 with TF32 off, rtol = atol =
+   1e-3 and max abs error <= 1e-4; times, the bound at the 3xTF32
+   tensor-core rate (the fp32 CUDA-core bound beside it) and the share of
+   the bound reached;
+7. K3 (the five layout probes): the probe tool's own run on the card, one
    fused launch of all five, each output held against its plain version
    (a-c bit-exact, d and e within 2^-8 max|want| and unequal in at most 1%
    of elements), the launch timed; the launch floor (an empty kernel
    through the same ctypes path); then each probe's own launch, plain and
    library times;
-7. the device NN-chain AHC on 5,000 well-separated embeddings against the
+8. the device NN-chain AHC on 5,000 well-separated embeddings against the
    host float64 NN-chain partition.
 
-The kernels line gives K1's and K2's times at the L of the file's chunk
-calls (the path's most frequent batch), and every L in ``shapes``.
+The kernels line gives K1's and K2's times at the L of the diarization
+file's chunk calls (the path's most frequent batch), every other shape in
+``shapes``, and their launches in the diarization and SV runs together
+(``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -125,8 +147,8 @@ def phase_build():
         f"total {time.perf_counter() - t0:.2f} s")
 
 
-def _test_waves(rng, batch: int, n: int):
-    t = np.arange(n) / FS
+def _test_waves(rng, batch: int, n: int, fs: int = FS):
+    t = np.arange(n) / fs
     f0 = rng.uniform(100, 400, size=(batch, 1))
     wav = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
         2 * np.pi * 3.1 * f0 * t + 0.5)
@@ -154,6 +176,12 @@ def mma_sync_tf32_tflops() -> float:
     return n_mma * 2 * 16 * 8 * 8 / ms / 1e9
 
 
+# K1 at the windows and mel widths it takes besides the path's 16 kHz / 80
+# mel bins: (sample rate, mel bins, L) — the 10 s chunk at 8 and 48 kHz, and
+# M = 64, whose 8 mel n-tiles are not a multiple of the kernel's MEL_NG = 5
+K1_OTHER = ((8000, 80, 80000), (48000, 80, 480000), (FS, 64, 10 * FS))
+
+
 def phase_k1(lengths, main_len: int) -> dict:
     import torch
 
@@ -161,41 +189,47 @@ def phase_k1(lengths, main_len: int) -> dict:
     from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
     from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
 
-    cfg = FbankConfig()
-    fb = KaldiFbank(cfg, device="cuda")
-    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
     rate = mma_sync_tf32_tflops()
     log(f"[K1 ceiling] mma.sync TF32 on this card {rate:.1f} TFLOP/s "
         f"({rate / (PEAK_TF32_TC_FLOPS / 1e12):.1%} of the dense TF32 peak)")
     rng = np.random.default_rng(0)
     rows = []
-    for L in lengths:
-        wav = torch.from_numpy(_test_waves(rng, BATCH, L)).cuda()
+    for fs, mels, L, batch in ([(FS, 80, L, BATCH) for L in lengths]
+                               + [(FS, 80, SV_LONGEST, 1)]
+                               + [(*c, BATCH) for c in K1_OTHER]):
+        cfg = FbankConfig(sample_rate=fs, num_mel_bins=mels)
+        fb = KaldiFbank(cfg, device="cuda")
+        kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
+        wav = torch.from_numpy(_test_waves(rng, batch, L, fs)).cuda()
         with torch.inference_mode(), matmul_precision("float32"):
             got = fk.fbank_cuda(wav, fb._packed, **kw)
             want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
             torch.cuda.synchronize()
             err = fbank_oracle_check(got.cpu().numpy(), want.cpu().numpy(),
-                                     f"K1 vs plain at L = {L}")
+                                     f"K1 vs plain at {fs} Hz, M = {mels}, "
+                                     f"[{batch}, {L}]")
             ms = cuda_ms(lambda: fk.fbank_cuda(wav, fb._packed, **kw))
             plain = cuda_ms(lambda: fk.fbank_plain(wav, fb._B, fb._mel, **kw))
         T, M = got.shape[1], got.shape[2]
         # the function's inputs (waveform, B, mel) read once, out written once
         n_bytes = 4 * (wav.numel() + fb._B.numel() + fb._mel.numel()
                        + got.numel())
-        flops = 2 * BATCH * T * (cfg.frame_length * 2 * fk._NB + fk._NB * M)
+        nb = fb._packed.n_bins
+        flops = 2 * batch * T * (cfg.frame_length * 2 * nb + nb * M)
         # the route's rate: each fp32 product is TF32_PASSES TF32 products
         b, by = bound_ms(n_bytes, TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
         b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
-        log(f"[K1 L={L}] out {tuple(got.shape)} max_abs_err {err:.3g} kernel "
-            f"{ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by}; "
+        log(f"[K1 {fs} Hz M={M} B={batch} L={L}] out {tuple(got.shape)} "
+            f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by}; "
             f"3xTF32) fp32-core bound {b32:.4f} ms; {b / ms:.1%} of the bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s; "
             f"{TF32_PASSES * flops / ms / 1e9 / rate:.1%} of the mma.sync rate")
-        rows.append({"L": L, "out": list(got.shape), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": b,
-                     "bound_by": by})
-    (top,) = _at(rows, main_len)
+        rows.append({"rate": fs, "mels": M, "B": batch, "L": L,
+                     "out": list(got.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b, "bound_by": by})
+        del wav, got, want
+    (top,) = [r for r in _at(rows, main_len) if r["rate"] == FS
+              and r["mels"] == 80]
     return {"name": "fbank", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/fbank.cu",
             "replaces": "speaker3d_tpu/ops/pallas/fbank_kernel.py:38",
@@ -245,15 +279,17 @@ def phase_k2(lengths, main_len: int) -> dict:
     from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 
     cfg = FbankConfig()
-    cases = [(L, *shape) for L in lengths for shape in k2_shapes(
-        1 + (L - cfg.frame_length) // cfg.frame_shift)]
+    cases = [(L, batch, *shape)
+             for L, batch in [(L, BATCH) for L in lengths] + [(SV_LONGEST, 1)]
+             for shape in k2_shapes(
+                 1 + (L - cfg.frame_length) // cfg.frame_shift)]
     gen = torch.Generator().manual_seed(1)
     gen_x = torch.Generator(device="cuda").manual_seed(1)
     rows, fp32_core = [], {}  # fp32-core bound per batch at each L: logged only
-    for L, name, cin, planes, stride, f, t, count in cases:
+    for L, batch, name, cin, planes, stride, f, t, count in cases:
         blk = _random_block(cin, planes, stride, gen)
         p = blk.folded()
-        x = torch.rand((BATCH, cin, f, t), generator=gen_x, device="cuda")
+        x = torch.rand((batch, cin, f, t), generator=gen_x, device="cuda")
         with torch.inference_mode(), matmul_precision("float32"):
             got = rk.res2_block_cuda(x, p, stride)
             want = rk.res2_block_plain(x, p, stride)
@@ -261,8 +297,8 @@ def phase_k2(lengths, main_len: int) -> dict:
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
             if err > K2_MAX_ABS_ERR:
-                raise AssertionError(f"K2 {name} at L = {L}: max abs error "
-                                     f"{err:.3g} > {K2_MAX_ABS_ERR}")
+                raise AssertionError(f"K2 {name} at [{batch}, {L}]: max abs "
+                                     f"error {err:.3g} > {K2_MAX_ABS_ERR}")
             ms = cuda_ms(lambda: rk.res2_block_cuda(x, p, stride), iters=5, runs=3)
             plain = cuda_ms(lambda: rk.res2_block_plain(x, p, stride), iters=5, runs=3)
         w, cout = p.width, got.shape[1]
@@ -278,11 +314,12 @@ def phase_k2(lengths, main_len: int) -> dict:
         # the route's rate: each fp32 product is TF32_PASSES TF32 products
         b, by = bound_ms(n_bytes, TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
         b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
-        log(f"[K2 L={L} {name}] x {tuple(x.shape)} -> {tuple(got.shape)} "
+        log(f"[K2 B={batch} L={L} {name}] x {tuple(x.shape)} -> "
+            f"{tuple(got.shape)} "
             f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
             f"bound {b:.4f} ms ({by}; 3xTF32) fp32-core bound {b32:.4f} ms; "
             f"{b / ms:.1%} of the bound, {flops / ms / 1e9:.1f} TFLOP/s")
-        rows.append({"L": L, "shape": name, "x": list(x.shape),
+        rows.append({"B": batch, "L": L, "shape": name, "x": list(x.shape),
                      "blocks": count, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": b, "bound_by": by})
         fp32_core[L] = fp32_core.get(L, 0.0) + count * b32
@@ -626,7 +663,263 @@ def phase_pipeline(work: str) -> dict:
         raise AssertionError("the two model ids padded the same chunks "
                              "differently")
     return {"k1": k1_total, "k2": k2_total, "stage": stage,
-            "lengths": lengths, "main_len": main_len}
+            "lengths": lengths, "main_len": main_len, "models": models}
+
+
+SV_CHUNK = 10 * FS               # extract's chunk: 10 s at 16 kHz
+# utterances of the SV phase, seconds: one shorter than a 400-sample frame,
+# one past the 90 s cap
+SV_SECONDS = (0.02, 0.4, 1.3, 2.9, 6.5, 10.0, 17.3, 42.0, 95.0)
+SV_LONGEST = int(max(SV_SECONDS) * FS)  # exact mode's longest batch-1 call
+SV_SPEAKERS = 3
+# the throughput corpus: 160 utterances of 80 s, 1,280 10 s chunks, 20 full
+# [64, 160000] batches
+SV_CORPUS_UTTS, SV_CORPUS_SECONDS = 160, 80.0
+
+
+def synth_utterance(seconds: float, speaker: int, seed: int) -> np.ndarray:
+    """One harmonic 'speaker' (pitch and timbre fixed per speaker) with
+    vibrato and noise, seeded; PCM16-exact float32."""
+    rng = np.random.default_rng(seed)
+    voice = np.random.default_rng(1000 + speaker)
+    f0, amps = voice.uniform(100, 300), voice.uniform(0.1, 1.0, 4)
+    n = int(seconds * FS)
+    t = np.arange(n) / FS
+    f = f0 * (1 + 0.03 * np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+    phase = 2 * np.pi * np.cumsum(f) / FS
+    sig = sum(a * np.sin((k + 1) * phase) for k, a in enumerate(amps))
+    wav = 0.25 * sig / amps.sum() + 0.003 * rng.standard_normal(n)
+    return (np.round(np.clip(wav, -1, 1 - 1 / 32768) * 32768) / 32768).astype(
+        np.float32)
+
+
+def synth_corpus(folder: str, n_utts: int, seconds: float, seed: int) -> str:
+    """A seeded corpus of wavs and its wav.scp (the path returned): each
+    utterance one of the SV_SPEAKERS voices of ``synth_utterance``, rolled by
+    a random offset, at a random gain, with noise of its own."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    voices = [synth_utterance(seconds, s, seed=seed + s)
+              for s in range(SV_SPEAKERS)]
+    os.makedirs(folder)
+    scp = os.path.join(folder, "wav.scp")
+    with open(scp, "w") as f:
+        for i in range(n_utts):
+            voice = voices[i % SV_SPEAKERS]
+            wav = (rng.uniform(0.5, 1.0) * np.roll(voice, int(rng.integers(
+                len(voice)))) + 0.002 * rng.standard_normal(len(voice)))
+            path = os.path.join(folder, f"c{i}.wav")
+            write_wav(path, wav, FS)
+            f.write(f"spk{i % SV_SPEAKERS}_c{i} {path}\n")
+    return scp
+
+
+def _counted(fn) -> tuple:
+    """Run ``fn`` with the K1 and K2 launch counts set to 0 just before;
+    (K1, K2) launches read just after."""
+    import torch
+
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+
+    fk.fbank_features.launches = 0
+    rk.res2_block.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return fk.fbank_features.launches, rk.res2_block.launches
+
+
+def _min_cosine(got: dict, want: dict, what: str) -> float:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    cos = min(float(got[k] @ want[k] / (np.linalg.norm(got[k])
+                                        * np.linalg.norm(want[k])))
+              for k in want)
+    if not cos >= 0.9999:
+        raise AssertionError(f"{what}: min cosine {cos} < 0.9999")
+    return cos
+
+
+def _finite_store(path: str) -> dict:
+    from speaker3d_tpu_torch.eval.scoring import load_embeddings
+
+    if not os.path.exists(path):
+        raise AssertionError(f"missing output {path}")
+    embs = load_embeddings(path)
+    if not embs or not all(np.isfinite(v).all() for v in embs.values()):
+        raise AssertionError(f"{path}: empty or not finite")
+    return embs
+
+
+def phase_sv(work: str, models: str, smi: str) -> dict:
+    import torch
+
+    from speaker3d_tpu_torch.cli import (
+        compute_score_metrics, extract, infer_sv, infer_sv_batch)
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.eval.embedding import build_embedding_fn, matmul_precision
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    sv = os.path.join(work, "sv")
+    os.makedirs(sv)
+    scp, wavs = os.path.join(sv, "wav.scp"), {}
+    with open(scp, "w") as f:
+        for i, sec in enumerate(SV_SECONDS):
+            utt = f"spk{i % SV_SPEAKERS}_utt{i}"
+            wavs[utt] = synth_utterance(sec, i % SV_SPEAKERS, seed=100 + i)
+            write_wav(os.path.join(sv, f"{utt}.wav"), wavs[utt], FS)
+            f.write(f"{utt} {os.path.join(sv, utt)}.wav\n")
+    short = min(wavs, key=lambda u: len(wavs[u]))
+    # infer_sv_batch's wav list names one file that does not exist
+    wav_list = os.path.join(sv, "wavs.txt")
+    with open(wav_list, "w") as f:
+        f.writelines(os.path.join(sv, f"{u}.wav\n")
+                     for u in sorted(wavs) + ["missing"])
+    corpus = synth_corpus(os.path.join(sv, "corpus"), SV_CORPUS_UTTS,
+                          SV_CORPUS_SECONDS, seed=200)
+    corpus_batches = (SV_CORPUS_UTTS * int(SV_CORPUS_SECONDS * FS) // SV_CHUNK
+                      // BATCH)
+    common = ["--model_id", MODEL_17M, "--local_model_dir", models]
+    runs, stats = {}, {}
+
+    def run(name, fn, embeds):
+        t0 = time.perf_counter()
+        k1, k2 = _counted(fn)
+        wall = time.perf_counter() - t0
+        log(f"[sv {name}] launches K1 {k1} K2 {k2}; {wall:.3f} s")
+        if not (k1 == embeds if embeds else k1 > 0) or k2 != 7 * k1:
+            raise AssertionError(f"sv {name}: launches K1 {k1} K2 {k2}; want "
+                                 f"K1 {embeds or '> 0'} and K2 = 7 x K1")
+        runs[name] = {"k1": k1, "k2": k2, "wall_s": wall}
+
+    # the main path: the port's own CLIs, the counts read after each run
+    out = {m: os.path.join(sv, m) for m in ("ark", "buckets", "exact", "pair",
+                                            "batch", "corpus")}
+    run("extract chunked ark", lambda: extract.main(
+        common + ["--data", scp, "--out_dir", out["ark"], "--out_type", "ark"]),
+        None)
+    run("extract chunked buckets npz", lambda: extract.main(
+        common + ["--data", scp, "--out_dir", out["buckets"], "--buckets",
+                  "1.5,3,6,10"]), None)
+    run("extract exact", lambda: extract.main(
+        common + ["--data", scp, "--out_dir", out["exact"], "--mode",
+                  "exact"]), len(wavs) - 1)
+    pair = sorted(wavs)[1:3]
+    run("infer_sv pair", lambda: infer_sv.main(
+        common + ["--wavs"] + [os.path.join(sv, f"{u}.wav") for u in pair]
+        + ["--save_dir", out["pair"]]), 2)
+    run("infer_sv_batch npy", lambda: infer_sv_batch.main(
+        common + ["--wavs", wav_list, "--out_dir", out["batch"]]), None)
+    run("extract chunked corpus", lambda: extract.main(
+        common + ["--data", corpus, "--out_dir", out["corpus"]]),
+        corpus_batches)
+    chunked = _finite_store(os.path.join(out["ark"], "embedding_0.scp"))
+    bucketed = _finite_store(out["buckets"])
+    exact = _finite_store(out["exact"])
+    paired = _finite_store(out["pair"])
+    if short in exact or len(exact) != len(wavs) - 1:
+        raise AssertionError(f"exact mode embedded {sorted(exact)}; want all "
+                             f"but {short} (shorter than a frame)")
+    if len(_finite_store(out["corpus"])) != SV_CORPUS_UTTS:
+        raise AssertionError("the corpus run lost utterances")
+    # precision "high" (TF32 outside the kernels) against extract's
+    # "highest"; the missing wav skipped
+    stats["min_cosine_infer_sv_batch_vs_extract"] = _min_cosine(
+        _finite_store(out["batch"]), chunked,
+        "sv infer_sv_batch vs extract chunked")
+
+    # scoring over the ark on the card, each printed score against the
+    # host's float64 cosine to one unit in its last printed place
+    trials = os.path.join(sv, "trials")
+    keys = sorted(chunked)
+    with open(trials, "w") as f:
+        for i, a in enumerate(keys):
+            for b in keys[i + 1:]:
+                f.write(f"{a} {b} {int(a.split('_')[0] == b.split('_')[0])}\n")
+    scores_dir = os.path.join(sv, "scores")
+    data = os.path.join(out["ark"], "embedding_0.scp")
+    compute_score_metrics.main(["--enrol_data", data, "--test_data", data,
+                                "--trials", trials, "--scores_dir",
+                                scores_dir])
+    with open(os.path.join(scores_dir, "result.metrics")) as f:
+        metrics = f.read()
+    unit = {k: v.astype(np.float64) / np.linalg.norm(v.astype(np.float64))
+            for k, v in chunked.items()}
+    with open(os.path.join(scores_dir, "trials.score")) as f:
+        score_err = [abs(float(s) - float(unit[e] @ unit[t]))
+                     for e, t, _, s in (line.split() for line in f)]
+    stats["score_max_abs_err_vs_host_float64"] = max(score_err)
+    if (len(score_err) != len(keys) * (len(keys) - 1) // 2
+            or not max(score_err) <= 1e-5 or "nan" in metrics):
+        raise AssertionError(f"scores: {len(score_err)}, max error against "
+                             f"the host {max(score_err)}; metrics {metrics!r}")
+    log(f"[sv compute_score_metrics] {len(score_err)} trials, max abs error "
+        f"against the host's float64 {max(score_err):.3g}; "
+        f"{' / '.join(metrics.splitlines()[1:])}")
+
+    # the CLI runs against the plain functions: each utterance's plan chunk
+    # by chunk (chunked, bucketed), each whole utterance at batch 1 (exact,
+    # infer_sv)
+    model = load_pretrained(MODEL_17M, models).cuda()
+    fb = KaldiFbank(FbankConfig(), device="cuda")
+
+    def plain(x):
+        with torch.inference_mode(), matmul_precision("highest"):
+            return _plain_embed(model, fb, torch.as_tensor(x, device="cuda"))
+
+    for name, got, buckets in (("chunked", chunked, [SV_CHUNK]),
+                               ("buckets", bucketed,
+                                [24000, 48000, 96000, SV_CHUNK])):
+        want = {u: embed_mean_over_plan(plain, w, plan_chunks(
+            len(w), buckets, 90 * FS)) for u, w in wavs.items()}
+        stats[f"min_cosine_{name}_vs_plain_plan"] = _min_cosine(
+            got, want, f"sv {name} vs the plan through the plain functions")
+    whole = {u: plain(wavs[u][None])[0].cpu().numpy() for u in exact}
+    stats["min_cosine_exact_vs_plain"] = _min_cosine(
+        exact, whole, "sv exact vs the plain functions at batch 1")
+    stats["min_cosine_infer_sv_vs_plain"] = _min_cosine(
+        paired, {u: whole[u] for u in pair},
+        "sv infer_sv vs the plain functions at batch 1")
+
+    # one [64, 160000] batch through the kernels against the plain functions
+    embed = build_embedding_fn(model, device="cuda", precision="highest")
+    rng = np.random.default_rng(7)
+    keys_long = [u for u in wavs if len(wavs[u]) >= SV_CHUNK]
+    batch = torch.from_numpy(np.stack([
+        wavs[u][s:s + SV_CHUNK] for u in rng.choice(keys_long, BATCH)
+        for s in [int(rng.integers(0, len(wavs[u]) - SV_CHUNK + 1))]])).cuda()
+    with torch.inference_mode(), matmul_precision("highest"):
+        got, want = embed(batch), plain(batch)
+        cos = float(torch.nn.functional.cosine_similarity(got, want, dim=1).min())
+        stats["embed_batch_ms"] = cuda_ms(lambda: embed(batch), warmup=2,
+                                          iters=2, runs=3)
+        stats["embed_batch_plain_ms"] = cuda_ms(lambda: plain(batch), warmup=2,
+                                                iters=2, runs=3)
+    stats["embed_batch_min_cosine"] = cos
+    if not bool(torch.isfinite(got).all()) or cos < 0.9999:
+        raise AssertionError(f"sv [{BATCH}, {SV_CHUNK}] batch kernel vs "
+                             f"plain: min cosine {cos}")
+
+    # throughput: the corpus run, every batch full
+    audio_s = SV_CORPUS_UTTS * SV_CORPUS_SECONDS
+    wall = runs["extract chunked corpus"]["wall_s"]
+    stats.update(corpus_audio_s=audio_s, corpus_batches=corpus_batches,
+                 throughput_audio_s_per_s=audio_s / wall,
+                 corpus_embed_share=(corpus_batches * stats["embed_batch_ms"]
+                                     / 1e3 / wall))
+    log(f"[sv throughput] {smi}: the extract CLI, chunked, on {audio_s:.0f} s "
+        f"of audio ({SV_CORPUS_UTTS} utterances, {corpus_batches} full "
+        f"[{BATCH}, {SV_CHUNK}] batches): {wall:.3f} s, "
+        f"{stats['throughput_audio_s_per_s']:.1f} audio-s/s (model load and "
+        f"wav decode included); embed batch {stats['embed_batch_ms']:.3f} ms "
+        f"(plain functions {stats['embed_batch_plain_ms']:.3f} ms, min cosine "
+        f"{cos:.7f}), {stats['corpus_embed_share']:.1%} of the run's wall")
+    return {"k1": sum(r["k1"] for r in runs.values()),
+            "k2": sum(r["k2"] for r in runs.values()),
+            "runs": runs, "stats": stats}
 
 
 def phase_nnchain() -> None:
@@ -667,14 +960,18 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory(prefix="s3d_chip_smoke_") as work:
         pipe = phase_pipeline(work)
-    k1 = phase_k1(pipe["lengths"], pipe["main_len"])
-    k2 = phase_k2(pipe["lengths"], pipe["main_len"])
+        sv = phase_sv(work, pipe["models"], device["smi"])
+    lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
+    k1 = phase_k1(lengths, pipe["main_len"])
+    k2 = phase_k2(lengths, pipe["main_len"])
     k3 = phase_k3()
     phase_nnchain()
 
-    k1["launches"] = pipe["k1"]
-    k2["launches"] = pipe["k2"]
-    log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"]}))
+    for k, key in ((k1, "k1"), (k2, "k2")):
+        k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key]}
+        k["launches"] = pipe[key] + sv[key]
+    log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
+                    "sv": {"runs": sv["runs"], **sv["stats"]}}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

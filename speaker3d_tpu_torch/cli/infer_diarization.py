@@ -97,7 +97,7 @@ def get_args(argv=None):
 def _refuse_unported(args) -> None:
     unported = []
     if args.exp_dir:
-        unported.append("--exp_dir (cli/extract.py, ROADMAP.md M9)")
+        unported.append("--exp_dir (the trainer's experiment layout, ROADMAP.md M12)")
     if args.vad_exp_dir:
         unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11)")
     if args.include_overlap:

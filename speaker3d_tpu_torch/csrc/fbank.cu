@@ -7,7 +7,8 @@
 //
 //   y     = frame @ B            B [frame_len, 2R]: DC removal, pre-emphasis,
 //                                window and the padded rDFT folded into one
-//                                matrix (ops/fbank.py analysis_matrix)
+//                                matrix (ops/fbank.py analysis_matrix), R =
+//                                n_bins + 1 for a padded window of 2 n_bins
 //   p[k]  = y_re[k]^2 + y_im[k]^2   (sqrt of it when use_power == 0)
 //   out   = log(max(p @ mel, FLT_EPSILON))   mel [R, M]   (no log when
 //                                            use_log == 0)
@@ -22,12 +23,16 @@
 //
 // Design:
 // - Operands packed once, on the host (ops/kernels/fbank_kernel.py
-//   pack_fbank): B's bins 0..255 with their columns interleaved as (re_k,
-//   im_k), so that the m16n8k8 C fragment of a lane holds the real and
-//   imaginary parts of one bin side by side, and mel's rows 0..255, each
-//   split into rna-TF32 big and small parts in B-fragment order (K = 400 is
-//   50 k-steps, N = 512 and 80). The Nyquist bin is skipped: its mel row is
-//   zero (the wrapper checks).
+//   pack_fbank): B's bins 0..n_bins-1 with their columns interleaved as
+//   (re_k, im_k), so that the m16n8k8 C fragment of a lane holds the real
+//   and imaginary parts of one bin side by side, and mel's rows
+//   0..n_bins-1, each split into rna-TF32 big and small parts in B-fragment
+//   order (at 16 kHz K = 400 is 50 k-steps, N = 512 and 80). The Nyquist
+//   bin is skipped: its mel row is zero (the wrapper checks).
+// - n_bins is a launch argument: half the power-of-two Kaldi window, 128
+//   (8 kHz, 200-sample frames) to 1024 (48 kHz, 1200), a multiple of 64 so
+//   that the bin chunks split evenly over two warps. The frame length and
+//   shift are launch arguments too; the skew below takes any shift.
 // - Tile: one block per run of 16 W frames of one batch row, W m-tiles of
 //   16 frames. The launch picks W per shape (pick_tile) so that the grid
 //   fills the 132 SMs in as few rounds as it can: W = 5 at [64, 24000], 10
@@ -36,10 +41,11 @@
 //   chunks, and sum their mel outputs at the end: an SM with few warps
 //   cannot hide the latency of their loads and mma chains.
 // - Frames are read straight from the waveform: the block stages the span
-//   of samples its frames cover in shared memory once, skewed (sample s at
-//   s + 4 floor(s / 160)), so a frame row is 164 floats, 4 mod 32 banks,
-//   and the 32 lanes of an A fragment load from 32 banks. A is split into
-//   big and small in registers.
+//   of samples its frames cover in shared memory once, skewed (at 16 kHz
+//   sample s at s + 4 floor(s / 160)), so a frame row is 164 floats, 4 mod
+//   32 banks (100 at 8 kHz, 484 at 48 kHz), and the 32 lanes of an A
+//   fragment load from 32 banks. A is split into big and small in
+//   registers.
 // - The products run bin chunk by bin chunk (8 n-tiles, 32 bins): the DFT
 //   over K, then the power in registers (the C fragments of n-tiles 2j and
 //   2j+1 are exactly the A fragment of mel k-step j, so y and the power
@@ -51,7 +57,7 @@
 //   (10 DFT k-steps x 8 n-tiles, or 5 x 16 when two warps split the
 //   chunks; or the chunks' mel k-steps), double buffered: stage s + 1 lands
 //   while stage s is multiplied, shared by all warps. Every block reads the
-//   packed B (1.6 MB) once from L2.
+//   packed B once from L2 (1.6 MB at 16 kHz, 19.7 MB at 48 kHz).
 // - Frames past the end of a row (the ragged last tile) compute and are
 //   masked on store.
 //
@@ -74,9 +80,7 @@ using s3d::cp_async_wait1;
 using s3d::mma3;
 using s3d::split;
 
-constexpr int NT_DFT = 64;     // n-tiles of the interleaved B (256 bins)
 constexpr int BC = 8;          // n-tiles per bin chunk (32 bins)
-constexpr int NBC = NT_DFT / BC;
 constexpr int MEL_KS = BC / 2;  // mel k-steps per bin chunk
 constexpr int MAX_NMT = 10;    // mel n-tiles (M <= 80)
 constexpr int MAX_NS = 2;      // warps that split one m-tile's bin chunks
@@ -87,8 +91,11 @@ constexpr int MEL_NG = 5;
 constexpr int WMAX = 16;       // warps per block
 constexpr int MIN_BUSY = 4;    // below this many warps an SM is not busier
 constexpr int MAX_SMEM = 232448;
+constexpr int MIN_BINS = 128;  // rDFT bins: 8 kHz (a 256-point window) ..
+constexpr int MAX_BINS = 1024;  // .. 48 kHz (2048)
+constexpr int BIN_STEP = 4 * BC * MAX_NS;  // bins in a bin chunk per warp split
 static_assert(MAX_NS * MEL_KS * MAX_NMT * 32 <= STAGE_F4, "a mel stage fits a buffer");
-static_assert(KC % MAX_NS == 0 && NBC % MAX_NS == 0, "stages split evenly");
+static_assert(KC % MAX_NS == 0, "stages split evenly");
 static_assert((MAX_NS - 1) * (WMAX / MAX_NS) * MAX_NMT * 4 * 32 <= 2 * STAGE_F4 * 4,
               "the reduction over the split fits the stage buffers");
 
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(32 * WMAX, 1)
 fbank_kernel(const float* __restrict__ wav, const float4* __restrict__ bdft,
              const float4* __restrict__ bmel, float* __restrict__ out,
              int n_samples, int n_frames, int tiles_per_row, int shift,
-             int nks, int M, int use_power, int use_log) {
+             int nks, int n_bins, int M, int use_power, int use_log) {
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int wm = (nthr >> 5) / NS;
@@ -156,9 +163,11 @@ fbank_kernel(const float* __restrict__ wav, const float4* __restrict__ bdft,
   const int b = blockIdx.x / tiles_per_row;
   const int f0 = (blockIdx.x % tiles_per_row) * 16 * wm;
   const int nmt = (M + 7) / 8;
+  const int nt_dft = n_bins / 4;            // n-tiles of the interleaved B
+  const int nbc = nt_dft / BC;              // bin chunks, a multiple of NS
   constexpr int kcs = KC / NS;              // DFT k-steps per stage
   const int nkc = (nks + kcs - 1) / kcs;    // DFT stages per chunk group
-  const int nst = NBC / NS * (nkc + 1);     // per group: nkc DFT stages, 1 mel
+  const int nst = nbc / NS * (nkc + 1);     // per group: nkc DFT stages, 1 mel
 
   // stage s of chunk group cg = s / (nkc + 1), the NS bin chunks cg NS ..
   // cg NS + NS - 1 (NS BC consecutive n-tiles): DFT k-steps [q kcs, q kcs +
@@ -172,7 +181,7 @@ fbank_kernel(const float* __restrict__ wav, const float4* __restrict__ bdft,
       const int n = min(kcs, nks - q * kcs) * row;
       for (int i = tid; i < n; i += nthr) {
         const int ks = i / row;
-        cp_async16(dst + i, bdft + ((size_t)(q * kcs + ks) * NT_DFT + cg * NS * BC) * 32 +
+        cp_async16(dst + i, bdft + ((size_t)(q * kcs + ks) * nt_dft + cg * NS * BC) * 32 +
                                 (i - ks * row));
       }
     } else {
@@ -246,7 +255,10 @@ fbank_kernel(const float* __restrict__ wav, const float4* __restrict__ bdft,
         split(power(acc[2 * j][2], acc[2 * j][3], use_power), ab[1], as[1]);
         split(power(acc[2 * j + 1][0], acc[2 * j + 1][1], use_power), ab[2], as[2]);
         split(power(acc[2 * j + 1][2], acc[2 * j + 1][3], use_power), ab[3], as[3]);
-        // n-tiles past nmt multiply what the buffer holds there, unused
+        // where nmt is not a multiple of MEL_NG, the last group's n-tiles
+        // past nmt multiply what the stage buffer holds there (at most
+        // (7 nmt + 5 ceil(nmt / 5)) * 32 float4 in, inside STAGE_F4), and
+        // their adds are masked: every n-tile below nmt is summed
 #pragma unroll
         for (int m0 = 0; m0 < MAX_NMT; m0 += MEL_NG) {
           if (m0 < nmt) {
@@ -311,16 +323,18 @@ const char* s3d_errstr(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// wav [batch, n_samples] fp32; bdft the packed interleaved B ([nks][64][32]
-// float4, nks = ceil(frame_len / 8)), bmel the packed mel rows 0..255
-// ([32][ceil(M / 8)][32] float4), out [batch, n_frames, M] fp32, M <= 80;
-// contiguous, on the device of `stream`.
+// wav [batch, n_samples] fp32; bdft the packed interleaved B ([nks][n_bins
+// / 4][32] float4, nks = ceil(frame_len / 8)), bmel the packed mel rows
+// 0..n_bins-1 ([n_bins / 8][ceil(M / 8)][32] float4), out [batch, n_frames,
+// M] fp32, M <= 80, n_bins a multiple of 64 in [128, 1024]; contiguous, on
+// the device of `stream`.
 int s3d_fbank_f32(const void* wav, const void* bdft, const void* bmel,
                   void* out, int batch, int n_samples, int n_frames,
-                  int frame_shift, int nks, int M, int use_power, int use_log,
-                  void* stream) {
+                  int frame_shift, int nks, int n_bins, int M, int use_power,
+                  int use_log, void* stream) {
   if (batch < 1 || n_frames < 1 || frame_shift < 1 || nks < 1 || M < 1 ||
-      M > 8 * MAX_NMT)
+      M > 8 * MAX_NMT || n_bins < MIN_BINS || n_bins > MAX_BINS ||
+      n_bins % BIN_STEP)
     return (int)cudaErrorInvalidValue;
   int dev = 0, n_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -339,7 +353,7 @@ int s3d_fbank_f32(const void* wav, const void* bdft, const void* bmel,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(wav), static_cast<const float4*>(bdft),
       static_cast<const float4*>(bmel), static_cast<float*>(out), n_samples,
-      n_frames, tiles_per_row, frame_shift, nks, M, use_power, use_log);
+      n_frames, tiles_per_row, frame_shift, nks, n_bins, M, use_power, use_log);
   return (int)cudaGetLastError();
 }
 

@@ -68,7 +68,14 @@ class AHCluster:
         self._warn_cutover(n, "nnchain (float64, O(N d) memory)")
         return "nnchain"
 
+    # set by the first cut-over warning: a batch run over many long files
+    # logs it once per process, not once per file
+    _cutover_warned = False
+
     def _warn_cutover(self, n, chosen):
+        if AHCluster._cutover_warned:
+            return
+        AHCluster._cutover_warned = True
         logging.getLogger("speaker3d_tpu_torch").warning(
             "AHC auto backend: N=%d > %d, switching scipy -> %s; near-tie "
             "merge order may differ from the reference's exact float64 "

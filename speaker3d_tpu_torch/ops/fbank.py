@@ -170,7 +170,9 @@ class KaldiFbank:
                                   device=self.device)
         self._mel = torch.as_tensor(mel_banks(cfg), dtype=torch.float32,
                                     device=self.device)
-        # the kernel's operands, split and packed once (CUDA only)
+        # the kernel's operands, split and packed once (CUDA only); a config
+        # the kernel does not take (a window that is not a power of two of
+        # 256-2048 samples, more than 80 mel bins) raises ValueError here
         self._packed = (fbank_kernel.pack_fbank(self._B, self._mel)
                         if self.device.type == "cuda" else None)
 

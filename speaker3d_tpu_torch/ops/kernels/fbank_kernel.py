@@ -25,7 +25,9 @@ from speaker3d_tpu_torch.kernels.build import check, library
 from speaker3d_tpu_torch.ops.kernels.tf32 import pack_b, round8
 
 _EPSILON = float(np.finfo(np.float32).eps)
-_NB = 256  # rDFT bins the kernel computes (csrc/fbank.cu: 64 n-tiles of B)
+# rDFT bins the kernel computes (half the padded window; csrc/fbank.cu
+# MIN_BINS, MAX_BINS): 128 at 8 kHz, 256 at 16 kHz, 1024 at 48 kHz
+_MIN_BINS, _MAX_BINS = 128, 1024
 _MAX_MEL = 80  # mel bins the kernel takes (csrc/fbank.cu MAX_NMT n-tiles)
 
 
@@ -52,43 +54,59 @@ def _lib():
     if not getattr(lib, "_s3d_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.s3d_fbank_f32.restype = i
-        lib.s3d_fbank_f32.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.s3d_fbank_f32.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib._s3d_bound = True
     return lib
 
 
-def check_mel_for_kernel(mel) -> None:
-    """The kernel computes bins 0..255 only: the matrix must have 257 rows
-    with a zero Nyquist row (true of every Kaldi ``mel_banks`` matrix)."""
-    if mel.shape[0] != _NB + 1 or bool((mel[_NB:] != 0).any()):
-        raise ValueError("the fbank kernel needs a [257, M] mel matrix with "
-                         "a zero Nyquist row (512-point rDFT, Kaldi banks)")
+def check_mel_for_kernel(mel) -> int:
+    """The kernel computes bins 0..n_bins-1 of a power-of-two rDFT only: the
+    matrix must have n_bins + 1 rows, n_bins a power of two from 128 to 1024
+    (a padded window of 256 to 2048 samples, FbankConfig's
+    round_to_power_of_two), with a zero Nyquist row (true of every Kaldi
+    ``mel_banks`` matrix) and at most 80 columns. Returns n_bins."""
+    n_bins = mel.shape[0] - 1
+    if (n_bins & (n_bins - 1) or not _MIN_BINS <= n_bins <= _MAX_BINS):
+        raise ValueError(
+            f"the fbank kernel takes a power-of-two padded window of "
+            f"{2 * _MIN_BINS} to {2 * _MAX_BINS} samples ({_MIN_BINS} to "
+            f"{_MAX_BINS} rDFT bins, FbankConfig.round_to_power_of_two=True); "
+            f"got a {2 * n_bins}-point window ([{n_bins + 1}, M] mel matrix)")
+    if bool((mel[n_bins:] != 0).any()):
+        raise ValueError(f"the fbank kernel needs a [{n_bins + 1}, M] mel "
+                         f"matrix with a zero Nyquist row (Kaldi banks)")
+    if mel.shape[1] > _MAX_MEL:
+        raise ValueError(f"the fbank kernel takes at most {_MAX_MEL} mel "
+                         f"bins, got {mel.shape[1]}")
+    return n_bins
 
 
 @dataclass(frozen=True)
 class PackedFbank:
     """The kernel's operands, 3xTF32 B fragments (``tf32.pack_b``)."""
 
-    dft: torch.Tensor  # [ceil(L / 8), 64, 32, 4]: B's bins 0..255, columns (re_k, im_k)
-    mel: torch.Tensor  # [32, ceil(M / 8), 32, 4]: mel rows 0..255
+    dft: torch.Tensor  # [ceil(L / 8), n_bins / 4, 32, 4]: B's bins, columns (re_k, im_k)
+    mel: torch.Tensor  # [n_bins / 8, ceil(M / 8), 32, 4]: mel rows 0..n_bins-1
+    n_bins: int
     n_mel: int
 
 
 def pack_fbank(B, mel) -> PackedFbank:
-    """Split and pack B [L, 2R] and mel [R, M] (R = 257, zero Nyquist row)
-    for the kernel, on their device: B's columns of bins 0..255
-    interleaved as (re_0, im_0, re_1, ...), so that an mma C fragment holds
-    a bin's real and imaginary parts in one lane."""
-    check_mel_for_kernel(mel)
-    if mel.shape[1] > _MAX_MEL:
-        raise ValueError(f"the fbank kernel takes at most {_MAX_MEL} mel "
-                         f"bins, got {mel.shape[1]}")
-    R = mel.shape[0]
+    """Split and pack B [L, 2R] and mel [R, M] (R = n_bins + 1, zero Nyquist
+    row; ``check_mel_for_kernel``) for the kernel, on their device: B's
+    columns of bins 0..n_bins-1 interleaved as (re_0, im_0, re_1, ...), so
+    that an mma C fragment holds a bin's real and imaginary parts in one
+    lane."""
+    nb = check_mel_for_kernel(mel)
+    R = nb + 1
     B = torch.as_tensor(B, dtype=torch.float32)
     mel = torch.as_tensor(mel, dtype=torch.float32)
-    inter = torch.stack([B[:, :_NB], B[:, R:R + _NB]], dim=-1).reshape(
-        B.shape[0], 2 * _NB)
-    return PackedFbank(pack_b(inter), pack_b(mel[:_NB]), mel.shape[1])
+    if B.shape[1] != 2 * R:
+        raise ValueError(f"fbank kernel: B must be [L, {2 * R}] for a "
+                         f"[{R}, M] mel matrix, got {tuple(B.shape)}")
+    inter = torch.stack([B[:, :nb], B[:, R:R + nb]], dim=-1).reshape(
+        B.shape[0], 2 * nb)
+    return PackedFbank(pack_b(inter), pack_b(mel[:nb]), nb, mel.shape[1])
 
 
 def fbank_cuda(wav, packed: PackedFbank, *, frame_length: int,
@@ -102,9 +120,9 @@ def fbank_cuda(wav, packed: PackedFbank, *, frame_length: int,
     if wav.ndim != 2:
         raise ValueError(f"fbank kernel: wav must be [batch, n], got "
                          f"{tuple(wav.shape)}")
-    M = packed.n_mel
-    want = {"dft": (round8(frame_length) // 8, 2 * _NB // 8, 32, 4),
-            "mel": (_NB // 8, round8(M) // 8, 32, 4)}
+    M, nb = packed.n_mel, packed.n_bins
+    want = {"dft": (round8(frame_length) // 8, nb // 4, 32, 4),
+            "mel": (nb // 8, round8(M) // 8, 32, 4)}
     for name, shape in want.items():
         t = getattr(packed, name)
         if (t.device != wav.device or t.dtype != torch.float32
@@ -122,7 +140,7 @@ def fbank_cuda(wav, packed: PackedFbank, *, frame_length: int,
     stream = torch.cuda.current_stream(wav.device).cuda_stream
     rc = lib.s3d_fbank_f32(wav.data_ptr(), packed.dft.data_ptr(),
                            packed.mel.data_ptr(), out.data_ptr(), batch, n,
-                           n_frames, frame_shift, want["dft"][0], M,
+                           n_frames, frame_shift, want["dft"][0], nb, M,
                            int(use_power), int(use_log), stream)
     check(lib, rc, "s3d_fbank_f32")
     fbank_features.launches += 1

@@ -16,6 +16,12 @@ def process_rank_count() -> tuple:
     return 0, 1
 
 
+def process_rank() -> int:
+    """This process's shard identity (``process_rank_count``), which names
+    its per-rank output files."""
+    return process_rank_count()[0]
+
+
 def process_shard(items, process_index: Optional[int] = None,
                   process_count: Optional[int] = None):
     """Round-robin shard of a work list by process (rank::world)."""

@@ -1,7 +1,9 @@
-"""Audio file IO: PCM WAV decode/encode, resampling, ``load_audio``.
+"""Audio file IO: PCM WAV decode/encode, resampling, ``load_audio``, and
+Kaldi-style ``wav.scp`` lists.
 
-The port's own copy of the audio half of ``speaker3d_tpu/utils/fileio.py``:
-stdlib ``wave`` + numpy for PCM WAV, polyphase resampling with scipy.
+The port's own copy of the audio half of ``speaker3d_tpu/utils/fileio.py``
+and of its ``load_wav_scp``: stdlib ``wave`` + numpy for PCM WAV, polyphase
+resampling with scipy.
 """
 
 from __future__ import annotations
@@ -123,3 +125,10 @@ def load_audio(input, ori_fs: Optional[int] = None, obj_fs: Optional[int] = None
     if ori_fs is not None and obj_fs is not None and ori_fs != obj_fs:
         wav = resample(wav, ori_fs, obj_fs)
     return wav
+
+
+def load_wav_scp(fpath):
+    """``key path`` per line -> {key: path} (the path may hold spaces)."""
+    with open(fpath) as f:
+        rows = [line.strip().split(None, 1) for line in f if line.strip()]
+    return {k: v for k, v in rows}

@@ -88,3 +88,20 @@ def test_default_device_is_cuda():
         pytest.skip("checks the CPU-only default")
     with pytest.raises(RuntimeError, match="CUDA"):
         AHCluster()
+
+
+def test_auto_cutover_warns_once_per_process(caplog, monkeypatch):
+    """Two ``auto`` calls above the cut-over log one warning, as the JAX
+    AHCluster latches it (a batch run over long files logs it once)."""
+    monkeypatch.setattr(AHCluster, "_cutover_warned", False)
+    x = _embs(np.random.default_rng(13), 40)
+    ahc = AHCluster(fix_cos_thr=0.4, auto_nnchain_n=8, cpu_scipy_max_n=16,
+                    device="cpu")
+    with caplog.at_level("WARNING", logger="speaker3d_tpu_torch"):
+        first = ahc(x)
+        second = AHCluster(fix_cos_thr=0.4, auto_nnchain_n=8,
+                           cpu_scipy_max_n=16, device="cpu")(x)
+    warnings = [r for r in caplog.records if "AHC auto backend" in r.message]
+    assert len(warnings) == 1 and "nnchain" in warnings[0].message
+    assert _partition(first) == _partition(second) == _partition(
+        AHCluster(fix_cos_thr=0.4, backend="numpy", device="cpu")(x))

@@ -96,3 +96,42 @@ def test_kernel_needs_zero_nyquist_mel_row():
     bad[-1, 3] = 0.5
     with pytest.raises(ValueError):
         fbank_kernel.check_mel_for_kernel(bad)
+
+
+@pytest.mark.parametrize("rate,frames,n_bins", [(8000, 98, 128),
+                                                (48000, 98, 1024)])
+def test_other_rates_match_jax(rate, frames, n_bins):
+    """8 kHz (200-sample frames, a 256-point rDFT) and 48 kHz (1200, 2048):
+    the windows K1 takes besides 16 kHz."""
+    kw = dict(sample_rate=rate, num_mel_bins=80)
+    wav = (np.random.default_rng(rate).standard_normal((2, rate))
+           * 0.1).astype(np.float32)
+    fb = tfbank.KaldiFbank(tfbank.FbankConfig(**kw), mean_norm=True,
+                           device="cpu")
+    out = fb(torch.from_numpy(wav)).numpy()
+    ref = np.asarray(jfbank.KaldiFbank(jfbank.FbankConfig(**kw),
+                                       mean_norm=True)(wav))
+    assert out.shape == ref.shape == (2, frames, 80)
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+    assert fbank_kernel.check_mel_for_kernel(fb._mel) == n_bins
+    packed = fbank_kernel.pack_fbank(fb._B, fb._mel)
+    assert packed.n_bins == n_bins
+    assert packed.dft.shape == (-(-fb.cfg.frame_length // 8), n_bins // 4,
+                                32, 4)
+    assert packed.mel.shape == (n_bins // 8, 10, 32, 4)
+
+
+@pytest.mark.parametrize("kw,limit", [
+    ({"round_to_power_of_two": False}, "power-of-two padded window"),
+    ({"sample_rate": 4000}, "power-of-two padded window"),     # 64 bins
+    ({"sample_rate": 96000}, "power-of-two padded window"),    # 2048 bins
+    ({"num_mel_bins": 96}, "at most 80 mel bins")])
+def test_kernel_refuses_what_it_cannot_take_naming_the_limit(kw, limit):
+    cfg = tfbank.FbankConfig(**kw)
+    mel = torch.as_tensor(tfbank.mel_banks(cfg), dtype=torch.float32)
+    B = torch.as_tensor(tfbank.analysis_matrix(cfg), dtype=torch.float32)
+    with pytest.raises(ValueError, match=limit):
+        fbank_kernel.pack_fbank(B, mel)
+    # the CPU frontend still computes it (the plain version takes any window)
+    out = tfbank.KaldiFbank(cfg, device="cpu")(torch.zeros(cfg.sample_rate))
+    assert out.shape == (98, cfg.num_mel_bins)

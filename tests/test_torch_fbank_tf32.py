@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from speaker3d_tpu.ops import fbank as jfbank
 from speaker3d_tpu.ops.pallas.fbank_kernel import pallas_fbank
 from speaker3d_tpu_torch.ops import fbank as tfbank
 from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
@@ -25,10 +26,10 @@ FS = 16000
 NB = 256
 
 
-def _waves(seed: int, batch: int, n: int) -> np.ndarray:
+def _waves(seed: int, batch: int, n: int, fs: int = FS) -> np.ndarray:
     """Two-tone waves with noise, quantised to k/32768 as PCM16 audio is."""
     rng = np.random.default_rng(seed)
-    t = np.arange(n) / FS
+    t = np.arange(n) / fs
     f0 = rng.uniform(100, 400, size=(batch, 1))
     wav = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
         2 * np.pi * 3.1 * f0 * t + 0.5)
@@ -122,6 +123,22 @@ def test_3xtf32_emulation_matches_pallas(operands, n):
     want = np.asarray(pallas_fbank(wav, interpret=True))
     got = _emulate(wav, packed, cfg)
     assert got.shape == want.shape == (4, 1 + (n - 400) // 160, 80)
+    assert _meets_oracle(got, want), _oracle_errors(got, want)
+
+
+def test_3xtf32_emulation_matches_pallas_at_8khz():
+    """The 10 s chunk at 8 kHz: 200-sample frames at stride 80, 128 bins
+    (B's 25 k-steps x 32 n-tiles, mel's 16 k-steps)."""
+    jcfg = jfbank.FbankConfig(sample_rate=8000)
+    cfg = tfbank.FbankConfig(sample_rate=8000)
+    fb = tfbank.KaldiFbank(cfg, device="cpu")
+    packed = fk.pack_fbank(fb._B, fb._mel)
+    assert packed.dft.shape == (25, 32, 32, 4)
+    assert packed.mel.shape == (16, 10, 32, 4)
+    wav = _waves(8, 4, 80000, fs=8000)
+    want = np.asarray(pallas_fbank(wav, jcfg, interpret=True))
+    got = _emulate(wav, packed, cfg)
+    assert got.shape == want.shape == (4, 998, 80)
     assert _meets_oracle(got, want), _oracle_errors(got, want)
 
 

@@ -95,6 +95,40 @@ def test_fbank_kernel_at_the_path_batches(cuda, batch, n):
     assert _oracle_ok(got, want)
 
 
+# the windows K1 takes besides 16 kHz (8 kHz: 200-sample frames at stride
+# 80, 128 bins; 48 kHz: 1200 at 480, 1024 bins) at their 10 s chunk, and
+# the mel widths of the other backbones (M = 64: 8 n-tiles, not a multiple
+# of MEL_NG = 5; M = 40)
+@pytest.mark.parametrize("rate,mels,batch,n", [
+    (8000, 80, 64, 80000), (48000, 80, 64, 480000), (16000, 64, 64, 160000),
+    (16000, 40, 3, 41000), (8000, 80, 1, 33333), (48000, 64, 2, 100000)])
+def test_fbank_kernel_other_windows_and_mel_widths(cuda, rate, mels, batch, n):
+    rng = np.random.default_rng(rate + mels + n)
+    wav = torch.from_numpy((rng.standard_normal((batch, n)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    cfg = FbankConfig(sample_rate=rate, num_mel_bins=mels)
+    fb = KaldiFbank(cfg, device=cuda)
+    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
+    launches = fk.fbank_features.launches
+    with matmul_precision("float32"):
+        got = fk.fbank_features(wav, fb._B, fb._mel, fb._packed, **kw)
+        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == launches + 1
+    assert got.shape == want.shape == (
+        batch, 1 + (n - cfg.frame_length) // cfg.frame_shift, mels)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _oracle_ok(got, want)
+
+
+@pytest.mark.parametrize("kw", [{"round_to_power_of_two": False},
+                                {"sample_rate": 96000},
+                                {"num_mel_bins": 96}])
+def test_kaldi_fbank_on_the_card_refuses_what_k1_cannot_take(cuda, kw):
+    with pytest.raises(ValueError, match="power-of-two|at most 80"):
+        KaldiFbank(FbankConfig(**kw), device=cuda)
+
+
 @pytest.mark.parametrize("use_power,use_log", [(False, True), (True, False)])
 def test_fbank_kernel_options_match_plain(cuda, use_power, use_log):
     wav = torch.from_numpy((np.random.default_rng(7).standard_normal((4, 24000))
@@ -131,6 +165,11 @@ def test_fbank_kernel_needs_the_packed_operands(cuda):
     (128, 128, 2, 80, 748),  # layer2 entry at 7.5 s (L = 120,000)
     (256, 128, 1, 40, 149),  # layer2 after the stride at 3 s chunks
     (36, 36, 1, 13, 29),    # Cin and w = 14 not multiples of 8, Cout 72
+    (64, 64, 1, 80, 998),   # layer1 at 10 s SV chunks (L = 160,000)
+    (128, 64, 1, 80, 998),  # layer1.1
+    (128, 128, 2, 80, 998),  # layer2 entry
+    (256, 128, 1, 40, 499),  # layer2 after the stride
+    (64, 64, 1, 80, 1237),  # a whole utterance at batch 1 (ragged T)
 ])
 def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
     blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride), cin + f)
@@ -171,6 +210,58 @@ def test_embed_call_launches_both_kernels(cuda):
     assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
     cpu = build_embedding_fn(model, device="cpu", precision="high")(wavs)
     torch.testing.assert_close(out.cpu(), cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_embed_call_at_batch_1_and_a_ragged_length(cuda):
+    """The exact-mode and infer_sv call: one whole utterance, any length."""
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 1)
+    embed = build_embedding_fn(model, device=cuda, precision="highest")
+    wav = torch.from_numpy((np.random.default_rng(2).standard_normal(
+        (1, 77777)) * 0.1).astype(np.float32))
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    out = embed(wav)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == k1 + 1
+    assert rk.res2_block.launches == k2 + 4
+    cpu = build_embedding_fn(model, device="cpu", precision="highest")(wav)
+    torch.testing.assert_close(out.cpu(), cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_extract_cli_on_the_card_launches_both_kernels(cuda, tmp_path,
+                                                       monkeypatch):
+    from speaker3d_tpu_torch.cli import extract, registry
+    from speaker3d_tpu_torch.eval.scoring import load_embeddings
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    model_id = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
+    small = dict(num_blocks=(2, 2, 1, 1), m_channels=16, embedding_size=32)
+    for key, val in small.items():
+        monkeypatch.setitem(registry.SUPPORTS[model_id]["model"]["args"], key,
+                            val)
+    ckpt = tmp_path / "pretrained" / model_id / registry.SUPPORTS[model_id][
+        "model_pt"]
+    ckpt.parent.mkdir(parents=True)
+    torch.save(_randomize(registry.build_model(model_id), 3).state_dict(), ckpt)
+    rng = np.random.default_rng(4)
+    with open(tmp_path / "wav.scp", "w") as f:
+        for utt, sec in (("a", 0.01), ("b", 1.7), ("c", 23.4)):
+            write_wav(str(tmp_path / f"{utt}.wav"),
+                      0.1 * rng.standard_normal(int(sec * 16000)), 16000)
+            f.write(f"{utt} {tmp_path / utt}.wav\n")
+    common = ["--model_id", model_id, "--local_model_dir",
+              str(tmp_path / "pretrained"), "--data", str(tmp_path / "wav.scp")]
+    embs = {}
+    for mode in ("chunked", "exact"):
+        k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+        extract.main(common + ["--mode", mode, "--out_dir",
+                               str(tmp_path / mode)])
+        torch.cuda.synchronize()
+        d1, d2 = fk.fbank_features.launches - k1, rk.res2_block.launches - k2
+        assert d1 > 0 and d2 == 4 * d1, (mode, d1, d2)
+        embs[mode] = load_embeddings(str(tmp_path / mode))
+        assert all(np.isfinite(v).all() for v in embs[mode].values())
+    assert sorted(embs["chunked"]) == ["a", "b", "c"]
+    assert sorted(embs["exact"]) == ["b", "c"]  # "a" is shorter than a frame
 
 
 def test_device_nnchain_matches_host(cuda):

@@ -36,7 +36,10 @@ def test_package_has_the_slice_modules():
                  "models.eres2netv2", "compat.flax_convert", "eval.embedding",
                  "diar.vad", "diar.ahc_nnchain", "diar.cluster",
                  "diar.pipeline", "cli.registry", "cli.infer_diarization",
-                 "tools.probe_ops"):
+                 "tools.probe_ops", "eval.chunking", "eval.scoring",
+                 "utils.kaldi_ark", "utils.metrics", "cli.extract",
+                 "cli.infer_sv", "cli.infer_sv_batch",
+                 "cli.compute_score_metrics"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -87,7 +90,9 @@ def no_cuda():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
-    from speaker3d_tpu_torch.cli import infer_diarization
+    from speaker3d_tpu_torch.cli import (
+        compute_score_metrics, extract, infer_diarization, infer_sv,
+        infer_sv_batch)
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
@@ -102,6 +107,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         infer_diarization.main(["--wav", "a.wav", "--out_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         probe_ops.main([])
+    for cli, argv in ((extract, ["--model_id", "m", "--data", "s"]),
+                      (infer_sv_batch, ["--wavs", "w"]),
+                      (compute_score_metrics, ["--enrol_data", "e",
+                                               "--test_data", "e",
+                                               "--trials", "t"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv + ["--out_dir" if cli is not compute_score_metrics
+                             else "--scores_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
     assert infer_diarization.get_args(
         ["--wav", "a.wav", "--out_dir", "o"]).device == "cuda"
     # asked for explicitly, the CPU works
