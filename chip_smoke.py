@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's diarization and speaker-verification paths
-on one GPU.
+"""Drive the PyTorch/CUDA port's diarization, speaker-verification and
+serving paths, and every registry backbone, on one GPU.
 
     python3 chip_smoke.py
 
@@ -33,7 +33,21 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    [64, 160000] batch; ``infer_sv_batch`` against the chunked ``extract``
    run, each printed score against the host's float64 cosine to 1e-5; the
    corpus run's throughput in audio-seconds per second;
-5. K1 (fbank) on [64, L] for each of those L and 160,000, and on [1,
+5. the registry's other backbones at registry width on seeded
+   reference-named checkpoints: CAM++ (192 and 512), ERes2Net base, large
+   and huge, ECAPA-TDNN (1024 x 4, 3072); each through ``extract`` on the
+   SV utterances (launches: K2 7x K1 for base and large, 0 otherwise),
+   held against each utterance's plan through the plain functions, and one
+   [64, 160000] batch through the kernels against the plain functions
+   (cosine >= 0.9999, both timed);
+6. the embedding server: ``serve()`` in a thread on TCP port 0 with the
+   17.8M model, eight client threads sending 40 seeded requests (39 of
+   0.5-30 s and one of 95 s) as wav paths and as pcm_b64; launches (K2 7x K1), every
+   embedding against its plan through the plain functions (cosine >=
+   0.9999), request latency p50/p99 and requests/s; then
+   ``python -m speaker3d_tpu_torch.cli.serve_embedding --port 0`` as a
+   process answering one request, terminated after it;
+7. K1 (fbank) on [64, L] for each of those L and 160,000, and on [1,
    1520000] (the 95 s utterance at batch 1), against its plain version on
    the card, with the Kaldi-oracle thresholds of the CPU tests, and at the
    other windows and mel widths it takes (8 kHz [64, 80000], 48 kHz [64,
@@ -41,25 +55,26 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    tensor-core rate (the fp32 CUDA-core bound, the share of the bound
    reached and the share of the card's measured mma.sync TF32 rate beside
    it);
-6. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
+8. K2 (Res2 block) at the four block shapes of the 17.8M model's layer1-2
    at each of those L (B = 64) and at the 95 s utterance (B = 1, 9,498
-   frames) against its plain version, fp32 with TF32 off, rtol = atol =
-   1e-3 and max abs error <= 1e-4; times, the bound at the 3xTF32
-   tensor-core rate (the fp32 CUDA-core bound beside it) and the share of
-   the bound reached;
-7. K3 (the five layout probes): the probe tool's own run on the card, one
+   frames), and of ERes2Net base and large at the 10 s chunk (B = 64),
+   against its plain version, fp32 with TF32 off, rtol = atol = 1e-3 and
+   max abs error <= 1e-4; times, the bound at the 3xTF32 tensor-core rate
+   (the fp32 CUDA-core bound beside it) and the share of the bound reached;
+9. K3 (the five layout probes): the probe tool's own run on the card, one
    fused launch of all five, each output held against its plain version
    (a-c bit-exact, d and e within 2^-8 max|want| and unequal in at most 1%
    of elements), the launch timed; the launch floor (an empty kernel
    through the same ctypes path); then each probe's own launch, plain and
    library times;
-8. the device NN-chain AHC on 5,000 well-separated embeddings against the
-   host float64 NN-chain partition.
+10. the device NN-chain AHC on 5,000 well-separated embeddings against the
+    host float64 NN-chain partition.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
-``shapes``, and their launches in the diarization and SV runs together
-(``launches_by_path`` apart).
+``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
+diarization, SV, backbone and server runs together (``launches_by_path``
+apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -70,6 +85,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -240,23 +256,32 @@ def phase_k1(lengths, main_len: int) -> dict:
             "library_ms": None, "shapes": rows}
 
 
-def k2_shapes(frames: int) -> list:
+# the scale-2 block geometries K2 takes, (m_channels, base_width): the
+# 17.8M ERes2NetV2 (the diarization and SV paths) and ERes2Net base / VOX
+# and large (the backbones phase; large's layer2, w = 64 with Cout = 256,
+# takes the 8 x 16 tile)
+K2_MODELS = {"17.8M": (64, 26), "eres2net_base": (32, 32),
+             "eres2net_large": (64, 32)}
+
+
+def k2_shapes(frames: int, m: int = 64) -> list:
     """(name, Cin, planes, stride, input F, input T, blocks of this shape) of
-    the 17.8M model's layer1-2 at ``frames`` fbank frames: 7 blocks per
-    batch."""
+    layer1-2 (3 + 4 blocks) of a model with ``m_channels`` m, expansion 2,
+    at ``frames`` fbank frames: 7 blocks per batch."""
     half = (frames - 1) // 2 + 1  # after layer2.0's stride 2
-    return [("layer1.0", 64, 64, 1, 80, frames, 1),
-            ("layer1.1", 128, 64, 1, 80, frames, 2),
-            ("layer2.0", 128, 128, 2, 80, frames, 1),
-            ("layer2.1", 256, 128, 1, 40, half, 3)]
+    return [("layer1.0", m, m, 1, 80, frames, 1),
+            ("layer1.1", 2 * m, m, 1, 80, frames, 2),
+            ("layer2.0", 2 * m, 2 * m, 2, 80, frames, 1),
+            ("layer2.1", 4 * m, 2 * m, 1, 40, half, 3)]
 
 
-def _random_block(cin, planes, stride, gen):
+def _random_block(cin, planes, stride, gen, base_width=26):
     import torch
 
     from speaker3d_tpu_torch.models.eres2netv2 import BasicBlockERes2NetV2
 
-    blk = BasicBlockERes2NetV2(cin, planes, stride=stride)
+    blk = BasicBlockERes2NetV2(cin, planes, stride=stride,
+                               base_width=base_width)
     with torch.no_grad():
         for name, t in blk.state_dict().items():
             if name.endswith("num_batches_tracked"):
@@ -279,15 +304,18 @@ def phase_k2(lengths, main_len: int) -> dict:
     from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 
     cfg = FbankConfig()
-    cases = [(L, batch, *shape)
-             for L, batch in [(L, BATCH) for L in lengths] + [(SV_LONGEST, 1)]
-             for shape in k2_shapes(
-                 1 + (L - cfg.frame_length) // cfg.frame_shift)]
+    frames = lambda L: 1 + (L - cfg.frame_length) // cfg.frame_shift
+    # the 17.8M model at every L of the path and at the 95 s utterance (B =
+    # 1); ERes2Net base and large at the SV chunk
+    runs = ([("17.8M", L, BATCH) for L in lengths] + [("17.8M", SV_LONGEST, 1)]
+            + [(m, SV_CHUNK, BATCH) for m in ("eres2net_base", "eres2net_large")])
+    cases = [(model, L, batch, *shape) for model, L, batch in runs
+             for shape in k2_shapes(frames(L), K2_MODELS[model][0])]
     gen = torch.Generator().manual_seed(1)
     gen_x = torch.Generator(device="cuda").manual_seed(1)
     rows, fp32_core = [], {}  # fp32-core bound per batch at each L: logged only
-    for L, batch, name, cin, planes, stride, f, t, count in cases:
-        blk = _random_block(cin, planes, stride, gen)
+    for model, L, batch, name, cin, planes, stride, f, t, count in cases:
+        blk = _random_block(cin, planes, stride, gen, K2_MODELS[model][1])
         p = blk.folded()
         x = torch.rand((batch, cin, f, t), generator=gen_x, device="cuda")
         with torch.inference_mode(), matmul_precision("float32"):
@@ -297,8 +325,9 @@ def phase_k2(lengths, main_len: int) -> dict:
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
             if err > K2_MAX_ABS_ERR:
-                raise AssertionError(f"K2 {name} at [{batch}, {L}]: max abs "
-                                     f"error {err:.3g} > {K2_MAX_ABS_ERR}")
+                raise AssertionError(f"K2 {model} {name} at [{batch}, {L}]: "
+                                     f"max abs error {err:.3g} > "
+                                     f"{K2_MAX_ABS_ERR}")
             ms = cuda_ms(lambda: rk.res2_block_cuda(x, p, stride), iters=5, runs=3)
             plain = cuda_ms(lambda: rk.res2_block_plain(x, p, stride), iters=5, runs=3)
         w, cout = p.width, got.shape[1]
@@ -314,33 +343,43 @@ def phase_k2(lengths, main_len: int) -> dict:
         # the route's rate: each fp32 product is TF32_PASSES TF32 products
         b, by = bound_ms(n_bytes, TF32_PASSES * flops, PEAK_TF32_TC_FLOPS)
         b32, _ = bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
-        log(f"[K2 B={batch} L={L} {name}] x {tuple(x.shape)} -> "
+        log(f"[K2 {model} B={batch} L={L} {name}] x {tuple(x.shape)} w {w} -> "
             f"{tuple(got.shape)} "
             f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms "
             f"bound {b:.4f} ms ({by}; 3xTF32) fp32-core bound {b32:.4f} ms; "
             f"{b / ms:.1%} of the bound, {flops / ms / 1e9:.1f} TFLOP/s")
-        rows.append({"B": batch, "L": L, "shape": name, "x": list(x.shape),
-                     "blocks": count, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain, "bound_ms": b, "bound_by": by})
-        fp32_core[L] = fp32_core.get(L, 0.0) + count * b32
+        rows.append({"model": model, "B": batch, "L": L, "shape": name,
+                     "x": list(x.shape), "w": w, "blocks": count,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b, "bound_by": by})
+        key = (model, L, batch)
+        fp32_core[key] = fp32_core.get(key, 0.0) + count * b32
         del x, got, want
-    top = _at(rows, main_len)
-    per_batch = {k: sum(r["blocks"] * r[k] for r in top)
-                 for k in ("ms", "plain_ms", "bound_ms")}
-    log(f"[K2 per [{BATCH}, {main_len}] batch, 7 launches] kernel "
-        f"{per_batch['ms']:.3f} ms plain {per_batch['plain_ms']:.3f} ms bound "
-        f"{per_batch['bound_ms']:.3f} ms (3xTF32) fp32-core bound "
-        f"{fp32_core[main_len]:.3f} ms; "
-        f"{per_batch['bound_ms'] / per_batch['ms']:.1%} of the bound")
+    per_batch = {}
+    for model, L, batch in runs:
+        sel = [r for r in rows if (r["model"], r["L"], r["B"]) == (model, L, batch)]
+        per_batch[(model, L, batch)] = pb = {
+            k: sum(r["blocks"] * r[k] for r in sel)
+            for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"[K2 {model} per [{batch}, {L}] batch, 7 launches] kernel "
+            f"{pb['ms']:.3f} ms plain {pb['plain_ms']:.3f} ms bound "
+            f"{pb['bound_ms']:.3f} ms (3xTF32) fp32-core bound "
+            f"{fp32_core[(model, L, batch)]:.3f} ms; "
+            f"{pb['bound_ms'] / pb['ms']:.1%} of the bound")
+    top = [r for r in rows if r["model"] == "17.8M" and r["L"] == main_len]
     return {"name": "res2_block", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/res2_block.cu",
             "replaces": "speaker3d_tpu/ops/pallas/res2_block_kernel.py:143",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # per [64, main_len] embed batch: the 7 launches of layer1-2
-            **per_batch,
+            # per [64, main_len] embed batch of the 17.8M model: the 7
+            # launches of layer1-2
+            **per_batch[("17.8M", main_len, BATCH)],
             "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                              for r in top) else "bytes"),
-            "library_ms": None, "shapes": rows}
+            "library_ms": None,
+            "per_batch": [{"model": m, "L": L, "B": b, **v}
+                          for (m, L, b), v in per_batch.items()],
+            "shapes": rows}
 
 
 def _device_ms(fn, kernel: str, calls: int = 20) -> str:
@@ -489,10 +528,11 @@ def _save_checkpoint(model_id: str, root: str, seed: int) -> None:
 
 
 def _plain_embed(model, fb, wav):
-    """The embed call with the plain functions instead of the kernels."""
-    import torch
-
-    from speaker3d_tpu_torch.models.pooling import tstp
+    """The embed call with the plain functions instead of the kernels: K1's
+    plain fbank, and every block that the model sends to K2 through
+    ``res2_block_plain`` (the blocks' module-level ``res2_block`` swapped
+    for the call)."""
+    from speaker3d_tpu_torch.models import eres2netv2
     from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
     from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 
@@ -500,16 +540,11 @@ def _plain_embed(model, fb, wav):
                            frame_length=fb.cfg.frame_length,
                            frame_shift=fb.cfg.frame_shift)
     feats = feats - feats.mean(dim=-2, keepdim=True)
-    x = feats.transpose(1, 2).unsqueeze(1)
-    out = torch.relu(model.bn1(model.conv1(x)))
-    outs = []
-    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
-        for blk in layer:
-            out = (rk.res2_block_plain(out, blk.folded(), blk.stride)
-                   if blk.fusable else blk(out))
-        outs.append(out)
-    fuse = model.fuse34(outs[3], model.layer3_ds(outs[2]))
-    return model.seg_1(tstp(fuse))
+    kernel, eres2netv2.res2_block = eres2netv2.res2_block, rk.res2_block_plain
+    try:
+        return model(feats)
+    finally:
+        eres2netv2.res2_block = kernel
 
 
 def _flops(fn) -> int:
@@ -864,11 +899,7 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
     # by chunk (chunked, bucketed), each whole utterance at batch 1 (exact,
     # infer_sv)
     model = load_pretrained(MODEL_17M, models).cuda()
-    fb = KaldiFbank(FbankConfig(), device="cuda")
-
-    def plain(x):
-        with torch.inference_mode(), matmul_precision("highest"):
-            return _plain_embed(model, fb, torch.as_tensor(x, device="cuda"))
+    plain = _plain_fn(model, KaldiFbank(FbankConfig(), device="cuda"))
 
     for name, got, buckets in (("chunked", chunked, [SV_CHUNK]),
                                ("buckets", bucketed,
@@ -919,7 +950,230 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
         f"{cos:.7f}), {stats['corpus_embed_share']:.1%} of the run's wall")
     return {"k1": sum(r["k1"] for r in runs.values()),
             "k2": sum(r["k2"] for r in runs.values()),
-            "runs": runs, "stats": stats}
+            "runs": runs, "stats": stats, "scp": scp, "wavs": wavs}
+
+
+# the registry's other backbones at their registry geometry, and the K2
+# launches each embed call makes (7: layer1-2 of a scale-2 ERes2Net)
+BACKBONES = (("iic/speech_campplus_sv_zh-cn_16k-common", 0),
+             ("iic/speech_campplus_sv_en_voxceleb_16k", 0),
+             ("iic/speech_eres2net_base_sv_zh-cn_3dspeaker_16k", 7),
+             ("iic/speech_eres2net_large_sv_zh-cn_3dspeaker_16k", 7),
+             ("iic/speech_eres2net_sv_zh-cn_16k-common", 0),
+             ("iic/speech_ecapa-tdnn_sv_zh-cn_cnceleb_16k", 0))
+
+
+def _plain_fn(model, fb):
+    import torch
+
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+
+    def plain(x):
+        with torch.inference_mode(), matmul_precision("highest"):
+            return _plain_embed(model, fb, torch.as_tensor(x, device="cuda"))
+
+    return plain
+
+
+def phase_backbones(work: str, models: str, sv: dict) -> dict:
+    """Each backbone through ``extract`` (chunked) on the SV utterances,
+    held against each utterance's plan through the plain functions; one
+    [64, 160000] batch through the kernels against the plain functions."""
+    import torch
+
+    from speaker3d_tpu_torch.cli import extract
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.eval.embedding import build_embedding_fn, matmul_precision
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+
+    fb = KaldiFbank(FbankConfig(), device="cuda")
+    wavs = sv["wavs"]
+    rng = np.random.default_rng(9)
+    keys_long = [u for u in wavs if len(wavs[u]) >= SV_CHUNK]
+    batch = torch.from_numpy(np.stack([
+        wavs[u][s:s + SV_CHUNK] for u in rng.choice(keys_long, BATCH)
+        for s in [int(rng.integers(0, len(wavs[u]) - SV_CHUNK + 1))]])).cuda()
+    out, k1_total, k2_total = {}, 0, 0
+    for seed, (model_id, k2_per_call) in enumerate(BACKBONES, start=10):
+        _save_checkpoint(model_id, models, seed)
+        out_dir = os.path.join(work, "backbones", model_id.split("/")[-1])
+        t0 = time.perf_counter()
+        k1, k2 = _counted(lambda: extract.main([
+            "--model_id", model_id, "--local_model_dir", models, "--data",
+            sv["scp"], "--out_dir", out_dir]))
+        wall = time.perf_counter() - t0
+        if not (k1 > 0 and k2 == k2_per_call * k1):
+            raise AssertionError(f"{model_id}: launches K1 {k1} K2 {k2}; want "
+                                 f"K1 > 0 and K2 = {k2_per_call} x K1")
+        k1_total, k2_total = k1_total + k1, k2_total + k2
+        model = load_pretrained(model_id, models).cuda()
+        plain = _plain_fn(model, fb)
+        got = _finite_store(out_dir)
+        want = {u: embed_mean_over_plan(plain, w, plan_chunks(
+            len(w), [SV_CHUNK], 90 * FS)) for u, w in wavs.items()}
+        cos_cli = _min_cosine(got, want, f"{model_id} extract vs the plan "
+                                         f"through the plain functions")
+        embed = build_embedding_fn(model, device="cuda", precision="highest")
+        with torch.inference_mode(), matmul_precision("highest"):
+            e_k, e_p = embed(batch), plain(batch)
+            cos = float(torch.nn.functional.cosine_similarity(
+                e_k, e_p, dim=1).min())
+            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=2, runs=3)
+            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=2, runs=3)
+        if not bool(torch.isfinite(e_k).all()) or cos < 0.9999:
+            raise AssertionError(f"{model_id}: [{BATCH}, {SV_CHUNK}] batch "
+                                 f"kernel vs plain: min cosine {cos}")
+        n_params = sum(p.numel() for p in model.parameters())
+        out[model_id] = {"params_m": n_params / 1e6, "dim": int(e_k.shape[1]),
+                         "extract_wall_s": wall, "k1": k1, "k2": k2,
+                         "min_cosine_extract_vs_plain": cos_cli,
+                         "embed_batch_ms": ms, "embed_batch_plain_ms": plain_ms,
+                         "embed_batch_min_cosine": cos}
+        log(f"[backbone {model_id}] {n_params / 1e6:.2f}M params, dim "
+            f"{e_k.shape[1]}: extract {wall:.3f} s, launches K1 {k1} K2 {k2}, "
+            f"min cosine vs plain {cos_cli:.7f}; [{BATCH}, {SV_CHUNK}] batch "
+            f"{ms:.3f} ms through the kernels, {plain_ms:.3f} ms plain, min "
+            f"cosine {cos:.7f}")
+        del model, embed, e_k, e_p
+        torch.cuda.empty_cache()
+    return {"k1": k1_total, "k2": k2_total, "runs": out}
+
+
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 40
+
+
+def _serve_requests(sv_dir: str) -> list:
+    """40 seeded requests: (id, waveform, the wav path or None for
+    pcm_b64), 0.5-30 s and one of 95 s (past the 90 s cap), every other one
+    a wav file."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(21)
+    seconds = list(rng.uniform(0.5, 30.0, SERVE_REQUESTS - 1)) + [95.0]
+    reqs = []
+    for i, sec in enumerate(seconds):
+        wav = synth_utterance(float(sec), i % SV_SPEAKERS, seed=300 + i)
+        path = None
+        if i % 2 == 0:
+            path = os.path.join(sv_dir, f"req{i}.wav")
+            write_wav(path, wav, FS)
+        reqs.append((f"r{i}", wav, path))
+    return reqs
+
+
+def phase_server(work: str, models: str, smi: str) -> dict:
+    """``serve()`` in a thread on TCP port 0 with the 17.8M model; eight
+    client threads send 40 mixed-length requests; every embedding against
+    its plan through the plain functions; then the CLI as a process."""
+    import threading
+
+    import torch
+
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+    from speaker3d_tpu_torch.serve import request_embedding, serve
+
+    folder = os.path.join(work, "serve")
+    os.makedirs(folder)
+    reqs = _serve_requests(folder)
+    model = load_pretrained(MODEL_17M, models)
+    embed = build_embedding_fn(model, device="cuda", precision="high")
+    ready, holder = threading.Event(), []
+    thread = threading.Thread(target=serve, args=(embed,), kwargs=dict(
+        port=0, ready_event=ready, server_holder=holder), daemon=True)
+    thread.start()
+    if not ready.wait(timeout=60):
+        raise AssertionError("server: not listening after 60 s")
+    addr = holder[0].server_address
+    got, lat, errors = {}, {}, []
+    lock = threading.Lock()
+
+    def client(k):
+        for rid, wav, path in reqs[k::SERVE_CLIENTS]:
+            t0 = time.perf_counter()
+            try:
+                e = (request_embedding(addr, wav_path=path, req_id=rid)
+                     if path else request_embedding(addr, pcm=wav, req_id=rid))
+            except Exception as ex:  # reported below; fails the phase
+                with lock:
+                    errors.append(f"{rid}: {ex!r}")
+                continue
+            with lock:
+                got[rid], lat[rid] = e, time.perf_counter() - t0
+
+    try:
+        embed(np.zeros((16, SV_CHUNK), np.float32))  # warm the batch shape
+        torch.cuda.synchronize()
+        fk.fbank_features.launches = 0
+        rk.res2_block.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    finally:
+        holder[0].shutdown()
+        thread.join(timeout=30)
+    if errors or len(got) != len(reqs) or any(th.is_alive() for th in threads):
+        raise AssertionError(f"server: {len(got)} of {len(reqs)} answered; "
+                             f"errors {errors}")
+    if not (k1 > 0 and k2 == 7 * k1):
+        raise AssertionError(f"server: launches K1 {k1} K2 {k2}; want K1 > 0 "
+                             f"and K2 = 7 x K1")
+    chunks = sum(len(plan_chunks(len(w), [SV_CHUNK], 90 * FS))
+                 for _, w, _ in reqs)
+    plain = _plain_fn(model.cuda(), KaldiFbank(FbankConfig(), device="cuda"))
+    want = {rid: embed_mean_over_plan(plain, w, plan_chunks(
+        len(w), [SV_CHUNK], 90 * FS)) for rid, w, _ in reqs}
+    cos = _min_cosine(got, want, "server vs the plan through the plain "
+                                 "functions")
+    ms = sorted(1e3 * v for v in lat.values())
+    stats = {"requests": len(reqs), "clients": SERVE_CLIENTS,
+             "chunks": chunks, "audio_s": sum(len(w) for _, w, _ in reqs) / FS,
+             "wall_s": wall, "requests_per_s": len(reqs) / wall,
+             "p50_ms": float(np.percentile(ms, 50)),
+             "p99_ms": float(np.percentile(ms, 99)), "k1": k1, "k2": k2,
+             "min_cosine_vs_plain": cos}
+    log(f"[serve] {smi}: {len(reqs)} requests from {SERVE_CLIENTS} clients "
+        f"({stats['audio_s']:.1f} s of audio, {chunks} chunks of 10 s, batch "
+        f"16) in {wall:.3f} s: {stats['requests_per_s']:.2f} requests/s, "
+        f"latency p50 {stats['p50_ms']:.1f} ms p99 {stats['p99_ms']:.1f} ms; "
+        f"launches K1 {k1} K2 {k2}; min cosine vs plain {cos:.7f}")
+
+    # the CLI as its own process, on the card by default
+    rid, wav, _ = reqs[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speaker3d_tpu_torch.cli.serve_embedding",
+         "--port", "0", "--model_id", MODEL_17M, "--local_model_dir", models],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        listening = time.perf_counter() - t0
+        m = re.search(r"listening on ([\d.]+):(\d+)", line)
+        if not m:
+            raise AssertionError(f"serve_embedding printed {line!r}")
+        e = request_embedding((m.group(1), int(m.group(2))), pcm=wav,
+                              req_id=rid)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    stats["cli_listening_s"] = listening
+    stats["cli_min_cosine_vs_plain"] = _min_cosine(
+        {rid: e}, {rid: want[rid]}, "serve_embedding process vs plain")
+    log(f"[serve cli] listening after {listening:.2f} s; one request, cosine "
+        f"vs plain {stats['cli_min_cosine_vs_plain']:.7f}")
+    return {"k1": k1, "k2": k2, "stats": stats}
 
 
 def phase_nnchain() -> None:
@@ -961,6 +1215,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="s3d_chip_smoke_") as work:
         pipe = phase_pipeline(work)
         sv = phase_sv(work, pipe["models"], device["smi"])
+        backbones = phase_backbones(work, pipe["models"], sv)
+        server = phase_server(work, pipe["models"], device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"])
     k2 = phase_k2(lengths, pipe["main_len"])
@@ -968,10 +1224,13 @@ def main() -> int:
     phase_nnchain()
 
     for k, key in ((k1, "k1"), (k2, "k2")):
-        k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key]}
-        k["launches"] = pipe[key] + sv[key]
+        k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key],
+                                 "backbones": backbones[key],
+                                 "server": server[key]}
+        k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
-                    "sv": {"runs": sv["runs"], **sv["stats"]}}))
+                    "sv": {"runs": sv["runs"], **sv["stats"]},
+                    "backbones": backbones["runs"], "server": server["stats"]}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

@@ -9,11 +9,16 @@ Flax submodules are named like the reference's torch attribute paths
   - BatchNorm scale/bias           -> weight/bias
   - batch_stats mean/var           -> running_mean/running_var (and a zero
     ``num_batches_tracked``, which torch's BatchNorm keeps as a buffer)
+
+Two layers that the JAX modules hold as ``nn.Dense`` are k=1 ``Conv1d``s in
+the reference (CAM++'s ``xvector.dense.linear``, ECAPA's ``fc.conv``): given
+the port module's state_dict as ``like``, a leaf of the same size is
+reshaped to the module's shape, [O, I] -> [O, I, 1].
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,9 +40,15 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
+def state_dict_from_flax(variables: Mapping[str, Any],
+                         like: Optional[Mapping[str, Any]] = None) -> dict:
     """``{'params', 'batch_stats'}`` as nested dicts of numpy arrays -> a
-    state_dict of tensors for this package's modules (``strict=True``)."""
+    state_dict of tensors for this package's modules (``strict=True``).
+
+    ``like``: the target module's state_dict. A leaf whose shape differs
+    from its entry there is reshaped when the sizes agree, and raises
+    ``ValueError`` when they do not; keys missing from ``like`` are left to
+    ``load_state_dict`` to report."""
     out = {}
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})):
@@ -54,6 +65,13 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
                 elif t.ndim == 2:
                     t = t.T
             key = ".".join(mods + [tleaf])
+            if like is not None and key in like:
+                shape = tuple(like[key].shape)
+                if t.shape != shape:
+                    if t.size != int(np.prod(shape)):
+                        raise ValueError(f"{key}: converted shape {t.shape} "
+                                         f"does not fit the module's {shape}")
+                    t = t.reshape(shape)
             out[key] = torch.tensor(t)  # a copy: JAX-backed arrays are read-only
             if tleaf == "running_mean":
                 out[key[:-len("running_mean")] + "num_batches_tracked"] = (

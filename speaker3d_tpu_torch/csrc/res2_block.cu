@@ -60,7 +60,8 @@
 //   are at +-2). The launch (pick_geom) picks the tile per shape from {16 x
 //   16, 8 x 32} by the work its halos and ragged edges cost among the tiles
 //   whose shared memory fits (supported): 16 x 16 at F = 80 (w = 26),
-//   8 x 32 at F = 40 (w = 52). A block takes 219-232 KB of shared memory:
+//   8 x 32 at F = 40 (w = 52); 8 x 16 where neither fits (w = 64 with
+//   Cout = 256). A block takes up to 232 KB of shared memory:
 //   one block of 16 warps per SM, at the 128 registers a thread may have; `build.build(verbose=True)`
 //   prints the spills. Most of the time goes to stalls spread over the
 //   stages (staging, barriers, epilogues), not to the mma.
@@ -170,18 +171,27 @@ bool supported(const Geom& g) {
          32 * max_ntr(g.ext, round8(2 * g.w) / 8) <= g.bq;
 }
 
-// Output tiles (frequency x time) the launch picks from.
-constexpr int TILES[][2] = {{16, 16}, {8, 32}};
+// Output tiles (frequency x time) the launch picks from. The last, 8 x 16,
+// is taken only where neither of the others fits: at w = 64 with Cout = 256
+// (ERes2Net large's layer2) 16 x 16 needs 239,680 B of shared memory and
+// 8 x 32 254,144 B, 8 x 16 214,976 B. The work model below would also pick
+// it at V2's layer2 for short inputs (T <= ~150), where a round of the 3x3
+// and project stages holds 8 m-tiles against 16 at 16 x 16 (fewer warps
+// busy), which the model does not count; V2 keeps its tiles.
+constexpr int TILES[][2] = {{16, 16}, {8, 32}, {8, 16}};
+constexpr int N_MAIN_TILES = 2;
 
 // The geometry of the tile whose blocks do the least work (the expand over
 // the halos of s1 and s2, or both halves over s1's where one round holds
 // them, the 3x3 convs over theirs, the 1x1s over the tile; ragged edges
-// included) among the tiles the kernel takes; tf = 0 when it takes none.
+// included) among the main tiles the kernel takes, else the first fallback
+// tile it takes; tf = 0 when it takes none.
 Geom pick_geom(int cin, int w, int cout, int fin, int tin, int stride, int has_sc) {
   Geom best{};
   long long best_work = -1;
-  for (const auto& tile : TILES) {
-    Geom g = make_geom(cin, w, cout, fin, tin, stride, tile[0], tile[1]);
+  for (int i = 0; i < (int)(sizeof(TILES) / sizeof(TILES[0])); ++i) {
+    if (i == N_MAIN_TILES && best_work >= 0) break;
+    Geom g = make_geom(cin, w, cout, fin, tin, stride, TILES[i][0], TILES[i][1]);
     g.has_sc = has_sc;
     if (!supported(g)) continue;
     const long long expand = merged_expand(g) ? 2LL * g.ext : g.ext + g.mid;

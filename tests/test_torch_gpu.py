@@ -188,6 +188,85 @@ def test_res2_kernel_matches_plain(cuda, cin, planes, stride, f, t):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+# ERes2Net's scale-2 blocks at F = 80, (Cin, planes, stride, F, T): base and
+# VOX (w = 16 / 32, Cout 64 / 128) and large (w = 32 / 64, Cout 128 / 256;
+# its layer2 takes the 8 x 16 tile, the only one whose shared memory fits)
+ERES2NET_BLOCKS = {
+    "base": [(32, 32, 1, 80), (64, 32, 1, 80), (64, 64, 2, 80),
+             (128, 64, 1, 40)],
+    "large": [(64, 64, 1, 80), (128, 64, 1, 80), (128, 128, 2, 80),
+              (256, 128, 1, 40)],
+}
+
+
+@pytest.mark.parametrize("geom", sorted(ERES2NET_BLOCKS))
+@pytest.mark.parametrize("frames", [149, 998])
+def test_res2_kernel_at_eres2net_widths(cuda, geom, frames):
+    for cin, planes, stride, f in ERES2NET_BLOCKS[geom]:
+        t = frames if f == 80 else (frames + 1) // 2
+        blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride,
+                                              base_width=32), cin + t)
+        blk.to(cuda)
+        folded = blk.folded()
+        x = torch.rand((2, cin, f, t), generator=torch.Generator()
+                       .manual_seed(t)).to(cuda)
+        launches = rk.res2_block.launches
+        with matmul_precision("float32"):
+            got = rk.res2_block(x, folded, stride)
+            want = rk.res2_block_plain(x, folded, stride)
+        torch.cuda.synchronize()
+        assert rk.res2_block.launches == launches + 1
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        assert float((got - want).abs().max()) <= 1e-4, (cin, planes, stride)
+
+
+def test_eres2net_large_embed_batch_on_the_card(cuda):
+    from speaker3d_tpu_torch.models.eres2net import eres2net_large
+
+    model = _randomize(eres2net_large(embedding_size=512), 5)
+    embed = build_embedding_fn(model, device=cuda, precision="high")
+    wavs = torch.from_numpy((np.random.default_rng(6).standard_normal(
+        (4, 48000)) * 0.1).astype(np.float32))
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    out = embed(wavs)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == k1 + 1
+    assert rk.res2_block.launches == k2 + 7  # layer1 (3) + layer2 (4)
+    cpu = build_embedding_fn(model, device="cpu", precision="high")(wavs)
+    cos = torch.nn.functional.cosine_similarity(out.cpu(), cpu, dim=1)
+    assert out.shape == (4, 512) and float(cos.min()) >= 0.9999
+
+
+def test_server_answers_a_request_on_the_card(cuda):
+    import threading
+
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.serve import request_embedding, serve
+
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 7)
+    embed = build_embedding_fn(model, device=cuda, precision="high")
+    ready, holder = threading.Event(), []
+    thread = threading.Thread(target=serve, args=(embed,), kwargs=dict(
+        port=0, batch_size=4, ready_event=ready, server_holder=holder),
+        daemon=True)
+    thread.start()
+    assert ready.wait(timeout=60)
+    try:
+        wav = (0.1 * np.random.default_rng(8).standard_normal(23 * 16000)
+               ).astype(np.float32)
+        k1 = fk.fbank_features.launches
+        got = request_embedding(holder[0].server_address, pcm=wav)
+        assert fk.fbank_features.launches > k1
+    finally:
+        holder[0].shutdown()
+        thread.join(timeout=30)
+    cpu = build_embedding_fn(model, device="cpu", precision="high")
+    want = embed_mean_over_plan(cpu, wav, plan_chunks(len(wav), [160000],
+                                                      90 * 16000))
+    cos = float(got @ want / (np.linalg.norm(got) * np.linalg.norm(want)))
+    assert cos >= 0.9999, cos
+
+
 def test_res2_kernel_refuses_a_shape_no_tile_takes(cuda):
     # planes 160: w = 65 > 64 and Cout 320 > 256
     blk = _randomize(BasicBlockERes2NetV2(64, 160), 0).to(cuda)

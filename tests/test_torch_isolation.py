@@ -39,7 +39,9 @@ def test_package_has_the_slice_modules():
                  "tools.probe_ops", "eval.chunking", "eval.scoring",
                  "utils.kaldi_ark", "utils.metrics", "cli.extract",
                  "cli.infer_sv", "cli.infer_sv_batch",
-                 "cli.compute_score_metrics"):
+                 "cli.compute_score_metrics", "models.campplus",
+                 "models.eres2net", "models.ecapa_tdnn", "serve",
+                 "cli.serve_embedding"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -92,7 +94,7 @@ def no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
         compute_score_metrics, extract, infer_diarization, infer_sv,
-        infer_sv_batch)
+        infer_sv_batch, serve_embedding)
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
@@ -117,6 +119,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_embedding.main(["--model_id", "m"])
     assert infer_diarization.get_args(
         ["--wav", "a.wav", "--out_dir", "o"]).device == "cuda"
     # asked for explicitly, the CPU works

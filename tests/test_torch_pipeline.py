@@ -107,9 +107,13 @@ def test_cli_refuses_unported_flags(tmp_path):
 
 
 def test_registry_refuses_unported_ids_and_missing_checkpoints(tmp_path):
-    assert set(treg.SUPPORTS) | set(treg.NOT_PORTED) == set(jreg.SUPPORTS)
-    with pytest.raises(NotImplementedError, match="M10"):
-        treg.build_model("iic/speech_campplus_sv_zh-cn_16k-common")
+    """Every JAX id builds in the port (none is refused as unported any
+    more); an unknown id and a missing checkpoint are still refused."""
+    assert set(treg.SUPPORTS) == set(jreg.SUPPORTS)
+    for model_id in jreg.SUPPORTS:
+        assert isinstance(treg.build_model(model_id), torch.nn.Module)
+    with pytest.raises(KeyError, match="not supported"):
+        treg.build_model("iic/no_such_model")
     with pytest.raises(FileNotFoundError, match="no network egress"):
         treg.load_pretrained(MODEL_ID, str(tmp_path))
 
