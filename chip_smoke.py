@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's diarization, speaker-verification and
-serving paths, and every registry backbone, on one GPU.
+"""Drive the PyTorch/CUDA port's diarization (every clustering type),
+speaker-verification, serving and analysis paths, every registry backbone
+and the recipe backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,11 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    SV utterances (launches: K2 7x K1 for base and large, 0 otherwise),
    held against each utterance's plan through the plain functions, and one
    [64, 160000] batch through the kernels against the plain functions
-   (cosine >= 0.9999, both timed);
+   (cosine >= 0.9999, both timed); then ResNet34, Res2Net and x-vector at
+   their recipe widths (configs/resnet.yaml, res2net.yaml, xvector.yaml, 80
+   mel bins; no registry id, so no CLI): the same batch through the embed
+   call (K1 once, K2 never) against the plain functions, timed, with its
+   FLOP count and parameter count;
 6. the embedding server: ``serve()`` in a thread on TCP port 0 with the
    17.8M model, eight client threads sending 40 seeded requests (39 of
    0.5-30 s and one of 95 s) as wav paths and as pcm_b64; launches (K2 7x K1), every
@@ -68,13 +73,31 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    through the same ctypes path); then each probe's own launch, plain and
    library times;
 10. the device NN-chain AHC on 5,000 well-separated embeddings against the
-    host float64 NN-chain partition.
+    host float64 NN-chain partition;
+11. the diarization CLI with the 17.8M model on the 120 s conversation,
+    once per clustering type (spectral on the card, spectral on the host,
+    UMAP+HDBSCAN with its layout on the card; the file listed twice, so
+    the second call's ``cluster`` stage is warm; the oracle count of 3 and
+    the centroid merge off, as random weights would merge every speaker):
+    launches (K2 7x K1), an
+    RTTM each, speakers and stage times; ``compute_der`` of each RTTM
+    against itself (DER 0) and of the two spectral RTTMs against each
+    other;
+12. ``check_single_speaker`` on the SV utterances of 3 s and longer and
+    ``analyze_similarity`` over the bucketed extract run's embeddings, on
+    the card: launches, and every cosine against the host's float64
+    ``cosine_affinity`` of the same embeddings to 1e-5;
+13. spectral clustering's device path against its host path on seeded
+    embeddings of 12 speakers (d = 192, spread 0.05) at N = 1,024 (dense
+    eigh) and 5,000 (LOBPCG): the same partition, both timed; UMAP+HDBSCAN
+    (native, the layout on the card) at N = 2,000: the 12 speakers with at
+    most 1% noise, the layout and HDBSCAN timed.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
-diarization, SV, backbone and server runs together (``launches_by_path``
-apart).
+diarization, SV, backbone, server, clustering-CLI and analysis runs
+together (``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -509,12 +532,11 @@ def synth_conversation(seconds: float = 120.0, seed: int = 0) -> np.ndarray:
         np.float32)
 
 
-def _save_checkpoint(model_id: str, root: str, seed: int) -> None:
+def _random_bn_stats(model, seed: int):
+    """Seeded BatchNorm statistics that keep a random trunk's activations
+    alive: variances U(0.5, 1.5), means 0.1 N(0, 1)."""
     import torch
 
-    from speaker3d_tpu_torch.cli.registry import SUPPORTS, build_model
-
-    model = build_model(model_id)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -522,6 +544,15 @@ def _save_checkpoint(model_id: str, root: str, seed: int) -> None:
                 t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
             elif name.endswith("running_mean"):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return model
+
+
+def _save_checkpoint(model_id: str, root: str, seed: int) -> None:
+    import torch
+
+    from speaker3d_tpu_torch.cli.registry import SUPPORTS, build_model
+
+    model = _random_bn_stats(build_model(model_id), seed)
     path = os.path.join(root, model_id, SUPPORTS[model_id]["model_pt"])
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(model.state_dict(), path)
@@ -950,7 +981,8 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
         f"{cos:.7f}), {stats['corpus_embed_share']:.1%} of the run's wall")
     return {"k1": sum(r["k1"] for r in runs.values()),
             "k2": sum(r["k2"] for r in runs.values()),
-            "runs": runs, "stats": stats, "scp": scp, "wavs": wavs}
+            "runs": runs, "stats": stats, "scp": scp, "wavs": wavs,
+            "stores": out}
 
 
 # the registry's other backbones at their registry geometry, and the K2
@@ -1037,7 +1069,54 @@ def phase_backbones(work: str, models: str, sv: dict) -> dict:
             f"cosine {cos:.7f}")
         del model, embed, e_k, e_p
         torch.cuda.empty_cache()
+
+    # the recipe backbones (configs/resnet.yaml, res2net.yaml, xvector.yaml,
+    # 80 mel bins, no cut): no registry id, so no CLI; their path is the
+    # embed call, K1 and a cuDNN trunk
+    for seed, (name, model) in enumerate(_recipe_backbones(), start=30):
+        torch.manual_seed(seed)
+        model = _random_bn_stats(model, seed)
+        embed = build_embedding_fn(model, device="cuda", precision="highest")
+        plain = _plain_fn(model, fb)
+        k1, k2 = _counted(lambda: embed(batch))
+        if not (k1 == 1 and k2 == 0):
+            raise AssertionError(f"{name}: launches K1 {k1} K2 {k2}; want K1 "
+                                 f"1 and K2 0 per embed batch")
+        k1_total += k1
+        with torch.inference_mode(), matmul_precision("highest"):
+            e_k, e_p = embed(batch), plain(batch)
+            cos = float(torch.nn.functional.cosine_similarity(
+                e_k, e_p, dim=1).min())
+            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=2, runs=3)
+            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=2, runs=3)
+            gflop = _flops(lambda: plain(batch)) / 1e9
+        if not bool(torch.isfinite(e_k).all()) or cos < 0.9999:
+            raise AssertionError(f"{name}: [{BATCH}, {SV_CHUNK}] batch kernel "
+                                 f"vs plain: min cosine {cos}")
+        n_params = sum(p.numel() for p in model.parameters())
+        out[name] = {"params_m": n_params / 1e6, "dim": int(e_k.shape[1]),
+                     "k1": k1, "k2": k2, "embed_batch_ms": ms,
+                     "embed_batch_plain_ms": plain_ms, "gflop": gflop,
+                     "embed_batch_min_cosine": cos}
+        log(f"[backbone {name}] {n_params / 1e6:.2f}M params, dim "
+            f"{e_k.shape[1]}, {gflop:.1f} GFLOP: [{BATCH}, {SV_CHUNK}] batch "
+            f"{ms:.3f} ms through the kernels, {plain_ms:.3f} ms plain, min "
+            f"cosine {cos:.7f}; launches K1 {k1} K2 {k2}")
+        del model, embed, e_k, e_p
+        torch.cuda.empty_cache()
     return {"k1": k1_total, "k2": k2_total, "runs": out}
+
+
+def _recipe_backbones():
+    from speaker3d_tpu_torch.models.res2net import Res2Net
+    from speaker3d_tpu_torch.models.resnet import ResNet
+    from speaker3d_tpu_torch.models.xvector import Xvector
+
+    yield "resnet34 (configs/resnet.yaml)", ResNet(
+        feat_dim=80, embedding_size=192, m_channels=32, two_emb_layer=False)
+    yield "res2net (configs/res2net.yaml)", Res2Net(
+        feat_dim=80, embedding_size=192, m_channels=32)
+    yield "xvector (configs/xvector.yaml)", Xvector(feat_dim=80, embed_dim=512)
 
 
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 40
@@ -1182,12 +1261,8 @@ def phase_nnchain() -> None:
     from speaker3d_tpu_torch.diar.ahc_nnchain import (
         device_linkage_labels, linkage_labels)
 
-    rng = np.random.default_rng(5)
-    n, d, n_spk = 5000, 192, 12
-    centers = rng.standard_normal((n_spk, d))
-    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
-    lab = rng.integers(0, n_spk, n)
-    x = (centers[lab] + 0.05 * rng.standard_normal((n, d))).astype(np.float32)
+    n = 5000
+    x, _ = _synth_speakers(n)
     t0 = time.perf_counter()
     dev = device_linkage_labels(x, 0.4, device="cuda")
     torch.cuda.synchronize()
@@ -1196,16 +1271,263 @@ def phase_nnchain() -> None:
     host = linkage_labels(x, 0.4)
     t_host = time.perf_counter() - t0
 
-    def partition(labels):
-        groups = {}
-        for i, g in enumerate(labels):
-            groups.setdefault(int(g), []).append(i)
-        return sorted(tuple(v) for v in groups.values())
-
-    if partition(dev) != partition(host):
+    if _partition(dev) != _partition(host):
         raise AssertionError("device NN-chain partition differs from host")
     log(f"[nnchain] N={n} clusters {len(set(dev.tolist()))} device "
         f"{t_dev:.3f} s host {t_host:.3f} s: same partition")
+
+
+def _synth_speakers(n: int, seed: int = 5, n_spk: int = 12, d: int = 192,
+                    spread: float = 0.05):
+    """Seeded synthetic speaker embeddings: ``n_spk`` unit directions in
+    ``d`` dimensions, each point one of them plus Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_spk, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    lab = rng.integers(0, n_spk, n)
+    return (centers[lab] + spread * rng.standard_normal((n, d))).astype(
+        np.float32), lab
+
+
+def _partition(labels) -> list:
+    groups = {}
+    for i, g in enumerate(np.asarray(labels).tolist()):
+        groups.setdefault(g, []).append(i)
+    return sorted(tuple(v) for v in groups.values())
+
+
+def phase_cluster(smi: str) -> dict:
+    """Spectral clustering's device path against its host path at N = 1,024
+    (dense eigh) and 5,000 (LOBPCG), the CLI's pval and speaker cap; then
+    UMAP+HDBSCAN (native, the layout on the card) at N = 2,000."""
+    import torch
+
+    from speaker3d_tpu_torch.diar import hdbscan_native, umap_native
+    from speaker3d_tpu_torch.diar.cluster import SpectralCluster, UmapHdbscan
+
+    out = {}
+    for n, branch in ((1024, "eigh"), (5000, "lobpcg")):
+        x, _ = _synth_speakers(n)
+        times, labels = {}, {}
+        for backend in ("device", "numpy", "device"):  # the second device call is warm
+            sc = SpectralCluster(pval=0.012, max_num_spks=15, backend=backend,
+                                 random_state=0, device="cuda")
+            t0 = time.perf_counter()
+            labels[backend] = sc(x)
+            torch.cuda.synchronize()
+            times.setdefault(backend, []).append(time.perf_counter() - t0)
+        if _partition(labels["device"]) != _partition(labels["numpy"]):
+            raise AssertionError(f"spectral N={n} ({branch}): device partition "
+                                 f"differs from the host's")
+        k = len(set(labels["device"].tolist()))
+        out[f"spectral_{n}"] = {"branch": branch, "speakers": k,
+                                "device_first_s": times["device"][0],
+                                "device_s": times["device"][1],
+                                "numpy_s": times["numpy"][0]}
+        log(f"[cluster spectral] {smi}: N={n} ({branch}) {k} speakers, same "
+            f"partition; device {times['device'][1]:.3f} s (first call "
+            f"{times['device'][0]:.3f} s), host float64 "
+            f"{times['numpy'][0]:.3f} s")
+
+    # UMAP+HDBSCAN: the layout and HDBSCAN timed inside the clusterer's call
+    n = 2000
+    x, lab = _synth_speakers(n)
+    spent = {"layout": 0.0, "hdbscan": 0.0}
+    layout_fn, hdb_fn = umap_native.optimize_layout, hdbscan_native.hdbscan_labels
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return r
+        return run
+
+    umap_native.optimize_layout = timed("layout", layout_fn)
+    hdbscan_native.hdbscan_labels = timed("hdbscan", hdb_fn)
+    try:
+        t0 = time.perf_counter()
+        got = UmapHdbscan(n_neighbors=20, n_components=60, min_samples=20,
+                          min_cluster_size=10, backend="native",
+                          device="cuda")(x)
+        wall = time.perf_counter() - t0
+    finally:
+        umap_native.optimize_layout, hdbscan_native.hdbscan_labels = (
+            layout_fn, hdb_fn)
+    noise = float(np.mean(got == -1))
+    kept = got != -1
+    if noise > 0.01 or _partition(got[kept]) != _partition(lab[kept]):
+        raise AssertionError(f"UMAP+HDBSCAN N={n}: noise share {noise}, "
+                             f"{len(set(got.tolist()) - {-1})} clusters; want "
+                             f"the 12 generating speakers")
+    out["umap_hdbscan_2000"] = {"wall_s": wall, "layout_s": spent["layout"],
+                                "hdbscan_s": spent["hdbscan"],
+                                "noise_share": noise}
+    log(f"[cluster umap_hdbscan] {smi}: N={n}, 60 components, 20 neighbours: "
+        f"the 12 speakers, noise {noise:.2%}; {wall:.3f} s, of which the "
+        f"layout on the card {spent['layout']:.3f} s (500 epochs) and HDBSCAN "
+        f"on the host {spent['hdbscan']:.3f} s")
+    return out
+
+
+DIAR_CLUSTER_RUNS = (("spectral_device", ["--cluster_type", "spectral",
+                                          "--cluster_backend", "device"]),
+                     ("spectral_numpy", ["--cluster_type", "spectral"]),
+                     ("umap_hdbscan", ["--cluster_type", "umap_hdbscan"]))
+# the file's three speakers as the oracle count, and the centroid merge off:
+# random weights put every chunk at cosine > 0.95, so the CLI's default
+# --cluster_mer_cos 0.3 would fuse whatever the clusterer found into one
+# speaker and the RTTMs would not show it
+DIAR_CLUSTER_FLAGS = ["--speaker_num", "3", "--cluster_mer_cos", "1.0"]
+
+
+def phase_diar_cluster(work: str, models: str, smi: str) -> dict:
+    """The diarization CLI with the 17.8M model on the 120 s conversation,
+    once per clustering type (the file listed twice: the second call is
+    warm); an RTTM from each, scored by compute_der against itself (DER 0)
+    and the two spectral RTTMs against each other."""
+    from speaker3d_tpu_torch.cli import compute_der, infer_diarization
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+
+    wav_path = os.path.join(work, "conv3.wav")
+    stages = []
+    call = DiarizationPipeline.__call__
+
+    def recording(self, *a, **kw):
+        out = call(self, *a, **kw)
+        stages.append(dict(self.last_stage_times))
+        return out
+
+    runs, rttms, k1, k2 = {}, {}, 0, 0
+    DiarizationPipeline.__call__ = recording
+    try:
+        for name, flags in DIAR_CLUSTER_RUNS:
+            stages.clear()
+            out_dir = os.path.join(work, f"diar_{name}")
+            t0 = time.perf_counter()
+            n1, n2 = _counted(lambda: infer_diarization.main(
+                ["--wav", wav_path, wav_path, "--out_dir", out_dir,
+                 "--model_id", MODEL_17M, "--local_model_dir", models]
+                + DIAR_CLUSTER_FLAGS + flags))
+            wall = time.perf_counter() - t0
+            if not (n1 > 0 and n2 == 7 * n1):
+                raise AssertionError(f"diarization {name}: launches K1 {n1} "
+                                     f"K2 {n2}; want K1 > 0 and K2 = 7 x K1")
+            k1, k2 = k1 + n1, k2 + n2
+            rttms[name] = os.path.join(out_dir, "conv3.rttm")
+            with open(rttms[name]) as f:
+                spk = {line.split()[7] for line in f}
+            if not spk:
+                raise AssertionError(f"diarization {name}: empty RTTM")
+            runs[name] = {"speakers": len(spk), "wall_s": wall, "k1": n1,
+                          "k2": n2, "cluster_first_s": stages[0]["cluster"],
+                          "cluster_warm_s": stages[1]["cluster"],
+                          "embed_warm_s": stages[1]["embed"]}
+            log(f"[diarization {name}] {smi}: {len(spk)} speakers; cluster "
+                f"stage warm {stages[1]['cluster']:.4f} s (first call "
+                f"{stages[0]['cluster']:.4f} s), embed {stages[1]['embed']:.3f} "
+                f"s; launches K1 {n1} K2 {n2}")
+    finally:
+        DiarizationPipeline.__call__ = call
+    for name, path in rttms.items():
+        der = compute_der.main(["--ref", path, "--hyp", path]).der
+        if der != 0.0:
+            raise AssertionError(f"compute_der of {name}'s RTTM against itself: "
+                                 f"DER {der}")
+    cross = compute_der.main(["--ref", rttms["spectral_numpy"], "--hyp",
+                              rttms["spectral_device"]]).der
+    log(f"[diarization compute_der] each RTTM against itself: DER 0; spectral "
+        f"device against spectral host: DER {100 * cross:.2f}%")
+    return {"k1": k1, "k2": k2, "runs": runs,
+            "der_spectral_device_vs_numpy": cross}
+
+
+def phase_analysis(work: str, models: str, sv: dict) -> dict:
+    """check_single_speaker and analyze_similarity on the card, on the SV
+    utterances: each cosine against the host's float64 cosine_affinity of
+    the same embeddings, to 1e-5."""
+    from speaker3d_tpu_torch.cli import analyze_similarity, check_single_speaker
+    from speaker3d_tpu_torch.diar.cluster import cosine_affinity
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+    from speaker3d_tpu_torch.eval.scoring import load_embeddings
+
+    folder = os.path.join(work, "analysis")
+    os.makedirs(folder)
+    wavs = [os.path.join(os.path.dirname(sv["scp"]), f"{u}.wav")
+            for u in sorted(sv["wavs"]) if len(sv["wavs"][u]) >= 2 * CHUNK]
+    wav_list = os.path.join(folder, "wavs.list")
+    with open(wav_list, "w") as f:
+        f.writelines(w + "\n" for w in wavs)
+    embeds, batches = [], []
+    extraction = DiarizationPipeline.do_emb_extraction
+
+    def recording(self, chunks, wav_1d):
+        out = extraction(self, chunks, wav_1d)
+        embeds.append(out)
+        batches.append(-(-len(chunks) // self.batch_size))
+        return out
+
+    out_json = os.path.join(folder, "single.json")
+    DiarizationPipeline.do_emb_extraction = recording
+    try:
+        k1, k2 = _counted(lambda: check_single_speaker.main(
+            ["--wav", wav_list, "--out", out_json, "--model_id", MODEL_17M,
+             "--local_model_dir", models]))
+    finally:
+        DiarizationPipeline.do_emb_extraction = extraction
+    if not (len(embeds) == len(wavs) and k1 == sum(batches)
+            and k2 == 7 * k1):
+        raise AssertionError(f"check_single_speaker: launches K1 {k1} K2 {k2} "
+                             f"for {len(embeds)} files; want one per embed "
+                             f"batch ({sum(batches)}) and K2 = 7 x K1")
+    with open(out_json) as f:
+        results = json.load(f)
+    err = 0.0
+    for r, e in zip(results, embeds):
+        aff = cosine_affinity(e)
+        for p in r["pairwise_similarities"]:
+            err = max(err, abs(p["cosine"] - aff[p["i"], p["j"]]))
+    if len(results) != len(wavs) or not err <= 1e-5:
+        raise AssertionError(f"check_single_speaker: {len(results)} results, "
+                             f"cosine error against the host {err}")
+    verdicts = {os.path.basename(r["wav_path"]): r["is_single_speaker"]
+                for r in results}
+
+    # analyze_similarity over the bucketed extract run's embeddings
+    emb_dir = sv["stores"]["buckets"]
+    utt2spk = os.path.join(folder, "utt2spk")
+    embs = load_embeddings(emb_dir)
+    with open(utt2spk, "w") as f:
+        f.writelines(f"{u} {u.split('_')[0]}\n" for u in sorted(embs))
+    stats = {"check_single_speaker_files": len(results),
+             "check_single_speaker_max_abs_err": err, "verdicts": verdicts}
+    for level in ("speaker", "utt"):
+        out_dir = os.path.join(folder, f"sim_{level}")
+        if analyze_similarity.main(["--emb", emb_dir, "--out_dir", out_dir,
+                                    "--utt2spk", utt2spk, "--level", level,
+                                    "--min_similarity", "0.0"]) != 0:
+            raise AssertionError(f"analyze_similarity --level {level} failed")
+        with open(os.path.join(out_dir, "speaker_similarity.json")) as f:
+            keys = json.load(f)["keys"]
+        if level == "speaker":
+            mat = np.stack([np.mean([embs[u].reshape(-1) for u in embs
+                                     if u.split("_")[0] == k], axis=0)
+                            for k in keys])
+        else:
+            mat = np.stack([embs[k].reshape(-1) for k in keys])
+        sim = np.load(os.path.join(out_dir, "similarity_matrix.npy"))
+        e = float(np.abs(sim - cosine_affinity(mat)).max())
+        if not e <= 1e-5:
+            raise AssertionError(f"analyze_similarity --level {level}: max abs "
+                                 f"error against the host's float64 {e}")
+        stats[f"analyze_{level}_max_abs_err"] = e
+    log(f"[analysis] check_single_speaker on {len(results)} files {verdicts}: "
+        f"launches K1 {k1} K2 {k2}, cosines within {err:.3g} of the host's "
+        f"float64; analyze_similarity (card, fp32) within "
+        f"{stats['analyze_speaker_max_abs_err']:.3g} (speaker) and "
+        f"{stats['analyze_utt_max_abs_err']:.3g} (utt) of the host's float64")
+    return {"k1": k1, "k2": k2, "stats": stats}
 
 
 def main() -> int:
@@ -1217,20 +1539,29 @@ def main() -> int:
         sv = phase_sv(work, pipe["models"], device["smi"])
         backbones = phase_backbones(work, pipe["models"], sv)
         server = phase_server(work, pipe["models"], device["smi"])
+        diar_cluster = phase_diar_cluster(work, pipe["models"], device["smi"])
+        analysis = phase_analysis(work, pipe["models"], sv)
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"])
     k2 = phase_k2(lengths, pipe["main_len"])
     k3 = phase_k3()
     phase_nnchain()
+    cluster = phase_cluster(device["smi"])
 
     for k, key in ((k1, "k1"), (k2, "k2")):
         k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key],
                                  "backbones": backbones[key],
-                                 "server": server[key]}
+                                 "server": server[key],
+                                 "diarization_clustering": diar_cluster[key],
+                                 "analysis": analysis[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
-                    "backbones": backbones["runs"], "server": server["stats"]}))
+                    "backbones": backbones["runs"], "server": server["stats"],
+                    "diarization_clustering": {
+                        k: v for k, v in diar_cluster.items()
+                        if k not in ("k1", "k2")},
+                    "analysis": analysis["stats"], "cluster": cluster}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

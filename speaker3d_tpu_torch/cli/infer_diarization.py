@@ -10,10 +10,14 @@ Usage:
   python -m speaker3d_tpu_torch.cli.infer_diarization --wav a.wav [b.wav ...] \
       --out_dir out/ [--model_id iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common]
       [--speaker_num N] [--out_type rttm|json] [--sidecar] [--device cuda]
+      [--cluster_type AHC|spectral|umap_hdbscan] [--cluster_backend device]
 
-Flags whose modules are not ported yet (--exp_dir, --vad_exp_dir,
---include_overlap, --cluster_type spectral|umap_hdbscan) stop with a message
-naming their ROADMAP.md item.
+Clustering: AHC (default), spectral (the upstream recipe's; float64 on the
+host, or its affinity, Laplacian and eigenpairs on ``--device`` with
+``--cluster_backend device``; ``--cluster_pval``, ``--cluster_seed``) or
+UMAP+HDBSCAN (the UMAP layout on ``--device``). Flags whose modules are not
+ported yet (--exp_dir, --vad_exp_dir, --include_overlap) stop with a
+message naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -60,7 +64,9 @@ def get_args(argv=None):
     p.add_argument("--segmentation_exp_dir", default=None)
     p.add_argument("--cluster_type", default="AHC",
                    choices=["AHC", "spectral", "umap_hdbscan"],
-                   help="clustering backend; only AHC is ported")
+                   help="clustering: AHC, spectral (the upstream recipe's) "
+                        "or umap_hdbscan; inputs of fewer than 40 chunks go "
+                        "to AHC whatever the type")
     p.add_argument("--cluster_backend", default="auto",
                    choices=["auto", "numpy", "device", "nnchain",
                             "nnchain_device"],
@@ -70,9 +76,12 @@ def get_args(argv=None):
                         "affinity on the card. The device NN-chain runs in "
                         "float32, so near-tie merge order can drift from "
                         "scipy's float64 linkage; force 'numpy' for exact "
-                        "reference parity")
+                        "reference parity. Spectral: 'device' runs the "
+                        "affinity, Laplacian and eigenpairs on --device in "
+                        "float32, every other value the float64 host path")
     p.add_argument("--cluster_seed", type=int, default=None,
-                   help="k-means seed of the spectral path (not ported yet)")
+                   help="k-means seed of the spectral path (default: numpy's "
+                        "global RNG, as the reference)")
     p.add_argument("--cluster_mer_cos", type=float, default=0.3)
     p.add_argument("--cluster_fix_cos_thr", type=float, default=0.3)
     p.add_argument("--cluster_min_cluster_size", type=int, default=0)
@@ -80,7 +89,7 @@ def get_args(argv=None):
                    help="relative minor-cluster threshold: effective size = "
                         "max(min_cluster_size, ceil(ratio*num_chunks))")
     p.add_argument("--cluster_pval", type=float, default=0.012,
-                   help="spectral p-pruning value (not ported yet)")
+                   help="spectral p-pruning value")
     p.add_argument("--chunk_dur", type=float, default=1.5)
     p.add_argument("--chunk_step", type=float, default=0.75)
     p.add_argument("--batch_size", type=int, default=64)
@@ -99,12 +108,11 @@ def _refuse_unported(args) -> None:
     if args.exp_dir:
         unported.append("--exp_dir (the trainer's experiment layout, ROADMAP.md M12)")
     if args.vad_exp_dir:
-        unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11)")
+        unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11b, "
+                        "after M12's experiment loader)")
     if args.include_overlap:
-        unported.append("--include_overlap (diar/overlap.py, ROADMAP.md M11)")
-    if args.cluster_type != "AHC":
-        unported.append(f"--cluster_type {args.cluster_type} "
-                        f"(ROADMAP.md M11)")
+        unported.append("--include_overlap (diar/overlap.py, ROADMAP.md "
+                        "M11b, after M12's experiment loader)")
     if unported:
         raise SystemExit("not ported to the PyTorch package yet: "
                          + "; ".join(unported))
@@ -144,13 +152,28 @@ def main(argv=None):
     model = load_pretrained(args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high")
     cluster = None
-    if args.cluster_backend != "auto":
+    if args.cluster_type != "AHC" or args.cluster_backend != "auto":
+        kw = {}
+        if args.cluster_type == "spectral":
+            kw = dict(pval=args.cluster_pval, max_num_spks=15,
+                      oracle_num=args.speaker_num,
+                      random_state=args.cluster_seed,
+                      backend=("device" if args.cluster_backend == "device"
+                               else "numpy"))
+        elif args.cluster_type == "AHC":
+            kw = dict(fix_cos_thr=args.cluster_fix_cos_thr,
+                      backend=args.cluster_backend)
+        # AHC keeps the pipeline's min_cluster_size (the backend flag changes
+        # numerics only); spectral and UMAP+HDBSCAN keep the recipe's 4
+        # when it is unset
+        min_csize = (args.cluster_min_cluster_size
+                     if args.cluster_type == "AHC"
+                     else args.cluster_min_cluster_size or 4)
         cluster = CommonClustering(
-            "AHC", mer_cos=args.cluster_mer_cos,
-            min_cluster_size=args.cluster_min_cluster_size,
-            min_cluster_ratio=args.cluster_min_cluster_ratio,
-            fix_cos_thr=args.cluster_fix_cos_thr,
-            backend=args.cluster_backend, device=device)
+            args.cluster_type, mer_cos=args.cluster_mer_cos,
+            min_cluster_size=min_csize,
+            min_cluster_ratio=args.cluster_min_cluster_ratio, device=device,
+            **kw)
     pipe = DiarizationPipeline(
         embed_fn,
         cluster=cluster,

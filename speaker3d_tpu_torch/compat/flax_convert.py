@@ -10,10 +10,13 @@ Flax submodules are named like the reference's torch attribute paths
   - batch_stats mean/var           -> running_mean/running_var (and a zero
     ``num_batches_tracked``, which torch's BatchNorm keeps as a buffer)
 
-Two layers that the JAX modules hold as ``nn.Dense`` are k=1 ``Conv1d``s in
-the reference (CAM++'s ``xvector.dense.linear``, ECAPA's ``fc.conv``): given
-the port module's state_dict as ``like``, a leaf of the same size is
-reshaped to the module's shape, [O, I] -> [O, I, 1].
+Some layers that the JAX modules hold as ``nn.Dense`` are k=1 ``Conv1d``s in
+the reference (CAM++'s ``xvector.dense.linear``, ECAPA's ``fc.conv``,
+ASTP's ``linear1``/``linear2``, the classifiers' ``blocks.<i>.linear``):
+given the port module's state_dict as ``like``, a leaf of the same size is
+reshaped to the module's shape, [O, I] -> [O, I, 1]. A raw ``weight``
+parameter (``CosineClassifier``) is already in torch layout and is copied
+as it is.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ _LEAF_TO_TORCH = {
     "bias": "bias",
     "mean": "running_mean",
     "var": "running_var",
+    "weight": "weight",  # a raw parameter kept in torch layout (CosineClassifier)
 }
 
 

@@ -6,7 +6,7 @@ bottom-up fusion after every stage:
 
     fuse12   = AFF(out2, layer1_downsample(out1))
     fuse123  = AFF(out3, layer2_downsample(fuse12))
-    fuse1234 = AFF(out4, layer3_downsample(fuse123))  -> TSTP -> seg_1
+    fuse1234 = AFF(out4, layer3_downsample(fuse123))  -> pooling -> seg_1
 
 The variants differ in (m_channels, base_width, scale, expansion):
 base (32, 32, 2, 2), large (64, 32, 2, 2), huge (64, 24, 3, 4). In eval
@@ -22,16 +22,16 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from speaker3d_tpu_torch.models.common import batch_norm2d
+from speaker3d_tpu_torch.models.common import (
+    add_embedding_layers, batch_norm2d, embedding_layers, trunk_freq)
 from speaker3d_tpu_torch.models.eres2netv2 import AFF, BasicBlockERes2NetV2
-from speaker3d_tpu_torch.models.pooling import tstp
+from speaker3d_tpu_torch.models.pooling import get_pooling, pooling_output_mult
 
 
 class ERes2Net(nn.Module):
     """Input: log-mel features [B, T, feat_dim]. Output: [B, embedding_size].
-    TSTP pooling and one embedding layer, as every registry model uses (the
-    JAX module's other pooling functions and second embedding layer are not
-    ported)."""
+    ``pooling_func``: TAP, TSDP or TSTP (every registry model uses TSTP with
+    one embedding layer)."""
 
     def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3),
                  m_channels: int = 32, feat_dim: int = 80,
@@ -39,10 +39,7 @@ class ERes2Net(nn.Module):
                  scale: int = 2, expansion: int = 2,
                  pooling_func: str = "TSTP", two_emb_layer: bool = False):
         super().__init__()
-        if pooling_func != "TSTP" or two_emb_layer:
-            raise NotImplementedError(
-                "ERes2Net: only TSTP pooling with one embedding layer is "
-                "ported (every registry model uses it)")
+        self.pool = get_pooling(pooling_func)
         m = m_channels
         self.conv1 = nn.Conv2d(1, m, 3, padding=1, bias=False)
         self.bn1 = batch_norm2d(m)
@@ -65,10 +62,9 @@ class ERes2Net(nn.Module):
         self.fuse_mode12 = AFF(channels=m * 2 * expansion)
         self.fuse_mode123 = AFF(channels=m * 4 * expansion)
         self.fuse_mode1234 = AFF(channels=m * 8 * expansion)
-        f = feat_dim
-        for _ in range(3):
-            f = (f + 1) // 2
-        self.seg_1 = nn.Linear(2 * m * 8 * expansion * f, embedding_size)
+        add_embedding_layers(
+            self, pooling_output_mult(pooling_func) * m * 8 * expansion
+            * trunk_freq(feat_dim), embedding_size, two_emb_layer)
 
     def forward(self, x):
         x = x.transpose(1, 2).unsqueeze(1)          # [B, T, F] -> [B, 1, F, T]
@@ -80,7 +76,7 @@ class ERes2Net(nn.Module):
         fuse123 = self.fuse_mode123(out3, self.layer2_downsample(fuse12))
         out4 = self.layer4(out3)
         fuse1234 = self.fuse_mode1234(out4, self.layer3_downsample(fuse123))
-        return self.seg_1(tstp(fuse1234))
+        return embedding_layers(self, self.pool(fuse1234))
 
 
 def eres2net_base(**kw) -> ERes2Net:

@@ -2,8 +2,8 @@
 
 The counterpart of ``speaker3d_tpu/models/eres2netv2.py``: a 2D ResNet-style
 trunk over the fbank "image" [B, 1, F, T] with Res2Net split-cascade blocks,
-AFF fusion in stages 3-4 plus one layer3->layer4 fusion, TSTP pooling and a
-linear projection. Attribute names are the reference's state_dict keys
+AFF fusion in stages 3-4 plus one layer3->layer4 fusion, temporal pooling
+(TSTP by default) and one or two embedding layers. Attribute names are the reference's state_dict keys
 (``layer1.0.convs.0``, ``fuse34``, ``seg_1``), so reference checkpoints load
 with ``strict=True``.
 
@@ -20,8 +20,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from speaker3d_tpu_torch.models.common import batch_norm2d, relu20
-from speaker3d_tpu_torch.models.pooling import tstp
+from speaker3d_tpu_torch.models.common import (
+    add_embedding_layers, batch_norm2d, embedding_layers, relu20, trunk_freq)
+from speaker3d_tpu_torch.models.pooling import get_pooling, pooling_output_mult
 from speaker3d_tpu_torch.ops.kernels.res2_block_kernel import (
     fold_res2_block, res2_block)
 
@@ -122,15 +123,16 @@ class BasicBlockERes2NetV2(nn.Module):
 class ERes2NetV2(nn.Module):
     """Input: log-mel features [B, T, feat_dim]. Output: [B, embedding_size].
     Default config = 17.8M params; w24s4ep4 uses base_width=24, scale=4,
-    expansion=4. TSTP pooling and one embedding layer, as both registry
-    models use (the JAX module's other pooling functions and second
-    embedding layer are not ported)."""
+    expansion=4. ``pooling_func``: TAP, TSDP or TSTP (both registry models
+    use TSTP with one embedding layer)."""
 
     def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3),
                  m_channels: int = 64, feat_dim: int = 80,
                  embedding_size: int = 192, base_width: int = 26,
-                 scale: int = 2, expansion: int = 2):
+                 scale: int = 2, expansion: int = 2,
+                 pooling_func: str = "TSTP", two_emb_layer: bool = False):
         super().__init__()
+        self.pool = get_pooling(pooling_func)
         self.conv1 = nn.Conv2d(1, m_channels, 3, padding=1, bias=False)
         self.bn1 = batch_norm2d(m_channels)
         in_planes = m_channels
@@ -150,10 +152,9 @@ class ERes2NetV2(nn.Module):
         self.layer3_ds = nn.Conv2d(m_channels * 4 * expansion, top, 3,
                                    stride=2, padding=1, bias=False)
         self.fuse34 = AFF(channels=top)
-        f = feat_dim
-        for _ in range(3):
-            f = (f + 1) // 2
-        self.seg_1 = nn.Linear(2 * top * f, embedding_size)  # mean ‖ std
+        add_embedding_layers(
+            self, pooling_output_mult(pooling_func) * top * trunk_freq(feat_dim),
+            embedding_size, two_emb_layer)
 
     def forward(self, x):
         x = x.transpose(1, 2).unsqueeze(1)          # [B, T, F] -> [B, 1, F, T]
@@ -163,7 +164,7 @@ class ERes2NetV2(nn.Module):
         out3 = self.layer3(out2)
         out4 = self.layer4(out3)
         fuse34 = self.fuse34(out4, self.layer3_ds(out3))
-        return self.seg_1(tstp(fuse34))
+        return embedding_layers(self, self.pool(fuse34))
 
 
 def eres2netv2_w24s4ep4(**kw) -> ERes2NetV2:

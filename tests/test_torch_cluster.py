@@ -76,9 +76,11 @@ def test_auto_cutover_asks_the_port_device():
 
 
 def test_unported_cluster_types_raise():
+    """Spectral and UMAP+HDBSCAN are ported (tests/test_torch_spectral.py,
+    tests/test_torch_umap_hdbscan.py); a type the JAX package lacks is
+    refused."""
     for kind in ("spectral", "umap_hdbscan"):
-        with pytest.raises(NotImplementedError, match="M11"):
-            CommonClustering(kind, device="cpu")
+        assert CommonClustering(kind, device="cpu").cluster_type == kind
     with pytest.raises(ValueError):
         CommonClustering("kmeans", device="cpu")
 

@@ -64,10 +64,27 @@ def test_kernel_takes_layer1_2_of_scale_2_only():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="TSTP"):
+    """TAP, TSDP and TSTP are the pooling functions the JAX module takes;
+    any other name is refused, naming them."""
+    with pytest.raises(ValueError, match="TSTP"):
         ERes2Net(pooling_func="ASTP")
-    with pytest.raises(NotImplementedError, match="TSTP"):
-        ERes2Net(two_emb_layer=True)
+
+
+@pytest.mark.parametrize("pooling_func", ["TAP", "TSDP"])
+def test_pooling_and_second_embedding_layer_match_jax(pooling_func):
+    kw = {**SMALL, **GEOMETRIES["base"], "pooling_func": pooling_func,
+          "two_emb_layer": True}
+    jm = JaxERes2Net(**kw)
+    variables = jax_variables(jm, t=60, seed=11)
+    feats = np.random.default_rng(12).standard_normal((2, 60, 80)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(jm.apply)(variables, feats))
+    model = ERes2Net(**kw)
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    assert "seg_2.weight" in model.state_dict()
+    with torch.inference_mode():
+        out = model.eval()(torch.from_numpy(feats)).numpy()
+    assert_close_scaled(out, ref, 3e-4)
 
 
 def test_large_parameter_count():

@@ -71,6 +71,23 @@ def test_small_depth_matches_jax(geom):
     assert_close_scaled(out, ref, 3e-4)
 
 
+@pytest.mark.parametrize("pooling_func", ["TAP", "TSDP"])
+def test_pooling_and_second_embedding_layer_match_jax(pooling_func):
+    kw = {**SMALL, **GEOMETRIES["s2e2"], "pooling_func": pooling_func,
+          "two_emb_layer": True}
+    jm = JaxERes2NetV2(**kw)
+    variables = jax_variables(jm, t=60, seed=5)
+    feats = np.random.default_rng(6).standard_normal((2, 60, 80)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(jm.apply)(variables, feats))
+    model = port_model(variables, **kw)
+    assert "seg_bn_1.running_mean" in model.state_dict()
+    with torch.inference_mode():
+        out = model(torch.from_numpy(feats)).numpy()
+    assert out.shape == ref.shape == (2, 32)
+    assert_close_scaled(out, ref, 3e-4)
+
+
 def test_state_dict_from_flax_matches_export():
     jm = JaxERes2NetV2(**SMALL)
     variables = jax_variables(jm)

@@ -356,6 +356,81 @@ def test_device_nnchain_matches_host(cuda):
         linkage_labels(x, 0.4))
 
 
+def _speakers(n, seed=2, n_spk=8, d=64, spread=0.05):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_spk, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    lab = rng.integers(0, n_spk, n)
+    return (centers[lab] + spread * rng.standard_normal((n, d))).astype(
+        np.float32), lab
+
+
+def _part(labels):
+    return sorted(tuple(np.flatnonzero(np.asarray(labels) == g))
+                  for g in set(np.asarray(labels).tolist()))
+
+
+@pytest.mark.parametrize("n,eigh_max_n", [(600, 2048), (600, 0)])
+def test_spectral_device_path_matches_host_on_the_card(cuda, n, eigh_max_n):
+    """The dense eigh branch and the LOBPCG branch (n > 5k) on the card
+    give the host float64 path's partition."""
+    from speaker3d_tpu_torch.diar.cluster import SpectralCluster
+
+    x, lab = _speakers(n)
+    kw = dict(pval=0.02, random_state=0, device=cuda)
+    dev = SpectralCluster(backend="device", eigh_max_n=eigh_max_n, **kw)(x)
+    host = SpectralCluster(backend="numpy", **kw)(x)
+    assert _part(dev) == _part(host) == _part(lab)
+
+
+def test_umap_layout_on_the_card(cuda):
+    """The layout on the card keeps the speakers apart, and UMAP+HDBSCAN
+    (native) recovers them."""
+    from speaker3d_tpu_torch.diar.cluster import UmapHdbscan
+    from speaker3d_tpu_torch.diar.umap_native import umap_embed
+
+    x, lab = _speakers(400)
+    y = umap_embed(x, n_neighbors=15, n_components=4, min_dist=0.0,
+                   n_epochs=200, seed=0, device=cuda)
+    assert y.shape == (400, 4) and np.isfinite(y).all()
+    means = np.stack([y[lab == g].mean(0) for g in range(8)])
+    spread = max(np.linalg.norm(y[lab == g] - means[g], axis=1).mean()
+                 for g in range(8))
+    gaps = np.linalg.norm(means[:, None] - means[None], axis=-1)
+    assert gaps[~np.eye(8, dtype=bool)].min() > 2.0 * spread
+    got = UmapHdbscan(n_neighbors=15, n_components=8, min_samples=10,
+                      min_cluster_size=10, backend="native", device=cuda)(x)
+    assert _part(got) == _part(lab)
+
+
+@pytest.mark.parametrize("name", ["resnet", "res2net", "xvector"])
+def test_recipe_backbone_batch_through_the_fbank_kernel(cuda, name):
+    """ResNet34, Res2Net and x-vector at their recipe widths (80 mel bins):
+    one batch through the embed call (K1, then a cuDNN trunk) against the
+    plain functions on the CPU."""
+    from speaker3d_tpu_torch.models.res2net import Res2Net
+    from speaker3d_tpu_torch.models.resnet import ResNet
+    from speaker3d_tpu_torch.models.xvector import Xvector
+
+    model = {"resnet": lambda: ResNet(feat_dim=80, embedding_size=192,
+                                      m_channels=32, two_emb_layer=False),
+             "res2net": lambda: Res2Net(feat_dim=80, embedding_size=192,
+                                        m_channels=32),
+             "xvector": lambda: Xvector(feat_dim=80, embed_dim=512)}[name]()
+    model = _randomize(model, 7)
+    wavs = torch.from_numpy((np.random.default_rng(8).standard_normal(
+        (4, 48000)) * 0.1).astype(np.float32))
+    embed = build_embedding_fn(model, device=cuda, precision="high")
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    out = embed(wavs)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == k1 + 1
+    assert rk.res2_block.launches == k2
+    cpu = build_embedding_fn(model, device="cpu", precision="high")(wavs)
+    cos = torch.nn.functional.cosine_similarity(out.cpu(), cpu, dim=1)
+    assert torch.isfinite(out).all() and float(cos.min()) >= 0.9999
+
+
 @pytest.mark.parametrize("key", list("abcde"))
 def test_probe_kernel_matches_plain(cuda, key):
     probe = probe_ops.PROBES[key]

@@ -2,8 +2,10 @@
 
 - Every module of ``speaker3d_tpu_torch`` imports in a fresh interpreter in
   which ``jax`` and ``speaker3d_tpu`` cannot be imported.
-- No module names ``jax``/``flax`` or ``speaker3d_tpu`` in an import (AST
-  scan), so no later slice reaches for the JAX package.
+- No module, and not ``chip_smoke.py``, names ``jax``/``flax``,
+  ``speaker3d_tpu`` or ``sklearn`` in an import (AST scan), so no later
+  slice reaches for the JAX package or for scikit-learn, which the card's
+  machine lacks.
 - The entry points raise without a CUDA device unless the caller passes
   ``device="cpu"``: nothing falls back to the CPU on its own.
 """
@@ -21,7 +23,7 @@ import speaker3d_tpu_torch
 
 PKG_DIR = os.path.dirname(speaker3d_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
-FORBIDDEN = ("jax", "jaxlib", "flax", "speaker3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "speaker3d_tpu", "sklearn")
 
 
 def _modules():
@@ -41,7 +43,11 @@ def test_package_has_the_slice_modules():
                  "cli.infer_sv", "cli.infer_sv_batch",
                  "cli.compute_score_metrics", "models.campplus",
                  "models.eres2net", "models.ecapa_tdnn", "serve",
-                 "cli.serve_embedding"):
+                 "cli.serve_embedding", "diar.kmeans", "diar.hdbscan_native",
+                 "diar.umap_native", "diar.der", "cli.compute_der",
+                 "cli.check_single_speaker", "cli.analyze_similarity",
+                 "models.pooling", "models.resnet", "models.res2net",
+                 "models.xvector", "models.classifier"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -64,24 +70,29 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_no_jax_imports_in_source():
-    offenders = []
+def _sources():
     for dirpath, _, files in os.walk(PKG_DIR):
         for fn in files:
-            if not fn.endswith(".py"):
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_source():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            else:
                 continue
-            path = os.path.join(dirpath, fn)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                else:
-                    continue
-                offenders += [(path, n) for n in names
-                              if n.split(".")[0] in FORBIDDEN]
+            offenders += [(path, n) for n in names
+                          if n.split(".")[0] in FORBIDDEN]
+    assert any(p.endswith("chip_smoke.py") for p in _sources())
     assert not offenders, offenders
 
 
@@ -93,6 +104,7 @@ def no_cuda():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
+        analyze_similarity, check_single_speaker, compute_der,
         compute_score_metrics, extract, infer_diarization, infer_sv,
         infer_sv_batch, serve_embedding)
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
@@ -121,6 +133,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_embedding.main(["--model_id", "m"])
+    for cli, argv in ((compute_der, ["--ref", "r", "--hyp", "h"]),
+                      (check_single_speaker, ["--wav", "a.wav"]),
+                      (analyze_similarity, ["--emb", "e", "--out_dir",
+                                            str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert check_single_speaker.get_args(["--wav", "a.wav"]).device == "cuda"
     assert infer_diarization.get_args(
         ["--wav", "a.wav", "--out_dir", "o"]).device == "cuda"
     # asked for explicitly, the CPU works

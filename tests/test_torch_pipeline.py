@@ -98,9 +98,11 @@ def test_cli_rttm_bytes_equal_jax(weights, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
+    """The flags whose modules wait for the trainer's experiment layout
+    (M12, M11b); --cluster_type spectral|umap_hdbscan run since they were
+    ported (tests/test_torch_diar_cli_extra.py)."""
     for extra in (["--exp_dir", "x"], ["--vad_exp_dir", "x"],
-                  ["--include_overlap"], ["--cluster_type", "spectral"],
-                  ["--cluster_type", "umap_hdbscan"]):
+                  ["--include_overlap"]):
         with pytest.raises(SystemExit, match="not ported"):
             tcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
                        "--device", "cpu"] + extra)
