@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's diarization (every clustering type),
-speaker-verification, serving and analysis paths, every registry backbone
-and the recipe backbones, on one GPU.
+speaker-verification, serving, analysis and training paths, every registry
+backbone and the recipe backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -91,13 +91,29 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     embeddings of 12 speakers (d = 192, spread 0.05) at N = 1,024 (dense
     eigh) and 5,000 (LOBPCG): the same partition, both timed; UMAP+HDBSCAN
     (native, the layout on the card) at N = 2,000: the 12 speakers with at
-    most 1% noise, the layout and HDBSCAN timed.
+    most 1% noise, the layout and HDBSCAN timed;
+14. the trainer: ``cli.train`` in a process of its own on
+    ``configs/eres2netv2.yaml`` as it is (the 17.8M ERes2NetV2, batch 256,
+    3 s crops, speed perturbation, augmentation at 0.6), overriding only the
+    paths, one epoch and ``remat=true``, on a seeded corpus of 64 speakers x
+    24 utterances of 3.2-5 s with seeded noise and RIR lists (6 steps; a
+    smaller batch, printed as a cut, if 256 does not fit): the median step
+    time, samples/s, the epoch's data-wait share, peak memory, launches (K1
+    once per step, K2 never: training takes the unfused blocks); one step
+    at B = 64 from the same weights and batch through K1 against the plain
+    fbank (loss to rtol 1e-3, parameters to 1e-5) and with remat against
+    without (loss and running statistics to 1e-5); then ``extract
+    --exp_dir`` on the trained experiment over the SV utterances (K1 and K2
+    launched, each utterance against its plan through the plain functions
+    at cosine >= 0.9999). K1 (item 7) is also held at the trainer's [256,
+    48000].
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
 diarization, SV, backbone, server, clustering-CLI and analysis runs
-together (``launches_by_path`` apart).
+together, and in the training and ``extract --exp_dir`` runs
+(``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -221,7 +237,7 @@ def mma_sync_tf32_tflops() -> float:
 K1_OTHER = ((8000, 80, 80000), (48000, 80, 480000), (FS, 64, 10 * FS))
 
 
-def phase_k1(lengths, main_len: int) -> dict:
+def phase_k1(lengths, main_len: int, train_batch: int) -> dict:
     import torch
 
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
@@ -235,6 +251,7 @@ def phase_k1(lengths, main_len: int) -> dict:
     rows = []
     for fs, mels, L, batch in ([(FS, 80, L, BATCH) for L in lengths]
                                + [(FS, 80, SV_LONGEST, 1)]
+                               + [(FS, 80, TRAIN_CROP, train_batch)]
                                + [(*c, BATCH) for c in K1_OTHER]):
         cfg = FbankConfig(sample_rate=fs, num_mel_bins=mels)
         fb = KaldiFbank(cfg, device="cuda")
@@ -268,7 +285,7 @@ def phase_k1(lengths, main_len: int) -> dict:
                      "bound_ms": b, "bound_by": by})
         del wav, got, want
     (top,) = [r for r in _at(rows, main_len) if r["rate"] == FS
-              and r["mels"] == 80]
+              and r["mels"] == 80 and r["B"] == BATCH]
     return {"name": "fbank", "route": "cuda",
             "source": "speaker3d_tpu_torch/csrc/fbank.cu",
             "replaces": "speaker3d_tpu/ops/pallas/fbank_kernel.py:38",
@@ -1530,6 +1547,290 @@ def phase_analysis(work: str, models: str, sv: dict) -> dict:
     return {"k1": k1, "k2": k2, "stats": stats}
 
 
+# the trainer (configs/eres2netv2.yaml at full width): a seeded corpus of
+# 64 speakers x 24 utterances of 3.2-5 s, one epoch of batch 256 (6 steps),
+# seeded noise and RIR lists for the config's augmentation
+TRAIN_CONFIG = os.path.join("configs", "eres2netv2.yaml")
+TRAIN_SPEAKERS, TRAIN_UTTS = 64, 24
+TRAIN_BATCHES = (256, 128, 64)    # the config's batch, then the cuts
+TRAIN_CROP = 3 * FS               # wav_len 3.0
+TRAIN_CHECK_BATCH = 64
+# K1 against the plain fbank, parameters after one step at lr 1e-4: conv1's
+# gradient sums the two fbanks' differences in the weak bins (the oracle
+# allows 2e-2 there) over 64 x 80 x 298 positions; measured 2.0e-4 on the
+# H100 (PERF.md section 6)
+TRAIN_STEP_PARAM_ATOL = 1e-3
+# the CLI in a process of its own: launch counts zeroed just before main()
+# and read just after it
+_TRAIN_DRIVER = (
+    "import json, sys, torch\n"
+    "from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk\n"
+    "from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk\n"
+    "from speaker3d_tpu_torch.cli import train\n"
+    "fk.fbank_features.launches = rk.res2_block.launches = 0\n"
+    "train.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print('[train launches] ' + json.dumps({'k1': fk.fbank_features.launches,"
+    " 'k2': rk.res2_block.launches, 'max_memory_allocated':"
+    " torch.cuda.max_memory_allocated()}), flush=True)\n")
+
+
+def train_corpus(folder: str, seed: int = 300) -> tuple:
+    """The seeded training corpus (``ID,wav,spk`` CSV) and noise and RIR
+    wav.scp lists; returns their three paths."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(folder, "wav"))
+    csv = os.path.join(folder, "train.csv")
+    with open(csv, "w") as f:
+        f.write("ID,wav,spk\n")
+        for i in range(TRAIN_SPEAKERS * TRAIN_UTTS):
+            spk = i % TRAIN_SPEAKERS
+            path = os.path.join(folder, "wav", f"t{i}.wav")
+            write_wav(path, synth_utterance(rng.uniform(3.2, 5.0), spk,
+                                            seed=seed + 1 + i), FS)
+            f.write(f"t{i},{path},spk{spk}\n")
+    lists = []
+    for kind, n, secs in (("noise", 6, 4.0), ("rir", 6, 0.25)):
+        scp = os.path.join(folder, f"{kind}.scp")
+        with open(scp, "w") as f:
+            for j in range(n):
+                x = rng.standard_normal(int(secs * FS))
+                if kind == "rir":  # a direct path, then a decaying tail
+                    x *= 0.3 * np.exp(-np.arange(len(x)) / (0.05 * FS))
+                    x[0] = 1.0
+                else:  # noise coloured by a one-pole low-pass
+                    x = np.cumsum(x) * 0.05 + x
+                    x -= x.mean()
+                path = os.path.join(folder, f"{kind}{j}.wav")
+                write_wav(path, 0.5 * x / np.abs(x).max(), FS)
+                f.write(f"{kind}{j} {path}\n")
+        lists.append(scp)
+    return csv, lists[0], lists[1]
+
+
+def _train_cli(folder: str, csv: str, noise: str, rir: str) -> dict:
+    """cli.train on configs/eres2netv2.yaml as it is, overriding only the
+    paths, one epoch and remat; at the config's batch, or the largest of the
+    cuts that fits on the card."""
+    import torch
+
+    torch.cuda.empty_cache()
+    for batch in TRAIN_BATCHES:
+        exp = os.path.join(folder, f"exp_b{batch}")
+        argv = ["--config", TRAIN_CONFIG, f"--exp_dir={exp}", f"--data={csv}",
+                f"--noise={noise}", f"--reverb={rir}", "--num_epoch=1",
+                "--remat=true"]
+        if batch != TRAIN_BATCHES[0]:
+            argv.append(f"--batch_size={batch}")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", _TRAIN_DRIVER] + argv, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if out.returncode == 0:
+            break
+        if "out of memory" not in out.stderr:
+            raise AssertionError(f"cli.train failed (rc {out.returncode}):\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        log(f"[train] batch {batch} does not fit on the card; trying the next")
+    else:
+        raise AssertionError("cli.train: no batch of "
+                             f"{TRAIN_BATCHES} fits on the card")
+    summary = re.search(
+        r"epoch 1: (\d+) steps of (\d+), step ([\d.]+) ms \(median; the first "
+        r"([\d.]+)\), "
+        r"([\d.]+) samples/s, data_wait_s ([\d.]+) of ([\d.]+) s, peak memory "
+        r"([\d.]+) GiB", out.stdout)
+    counts = re.search(r"\[train launches\] (\{.*\})", out.stdout)
+    if summary is None or counts is None:
+        raise AssertionError(f"cli.train printed no epoch summary:\n"
+                             f"{out.stdout[-3000:]}")
+    steps, b = int(summary.group(1)), int(summary.group(2))
+    counts = json.loads(counts.group(1))
+    with open(os.path.join(exp, "train_epoch.log")) as f:
+        epoch_log = f.read().strip()
+    loss = float(re.search(r"avg_loss: ([-\d.e]+)", epoch_log).group(1))
+    stats = {"batch": b, "cut": None if b == TRAIN_BATCHES[0] else
+             f"batch {b}: {TRAIN_BATCHES[0]} with remat did not fit",
+             "steps": steps, "step_ms_median": float(summary.group(3)),
+             "first_step_ms": float(summary.group(4)),
+             "samples_per_s": float(summary.group(5)),
+             "data_wait_s": float(summary.group(6)),
+             "epoch_s": float(summary.group(7)),
+             "data_wait_share": float(summary.group(6)) / float(summary.group(7)),
+             "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
+             "k1": counts["k1"], "k2": counts["k2"], "avg_loss": loss,
+             "process_wall_s": wall}
+    if not (os.path.isdir(os.path.join(exp, "models", "CKPT-EPOCH-1-00"))
+            and np.isfinite(loss)):
+        raise AssertionError(f"cli.train: no checkpoint or loss {loss}")
+    if counts["k1"] != steps or counts["k2"] != 0:
+        raise AssertionError(f"cli.train: launches K1 {counts['k1']} K2 "
+                             f"{counts['k2']} in {steps} steps; want K1 once "
+                             f"per step, K2 never (training takes the "
+                             f"unfused blocks)")
+    stats["exp"] = exp
+    return stats
+
+
+def _train_step_checks(csv: str) -> dict:
+    """One step of the 17.8M model at B = 64 from the same weights and batch:
+    through K1 against the plain fbank, and with remat against without."""
+    import copy
+    import random
+
+    import torch
+
+    from speaker3d_tpu_torch.cli.train import build_model
+    from speaker3d_tpu_torch.data.processors import SpkLabelEncoder, WavReader
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.train import sv_train
+    from speaker3d_tpu_torch.utils.config import build_config
+    from speaker3d_tpu_torch.utils.fileio import load_data_csv
+
+    config = build_config(os.path.join(ROOT, TRAIN_CONFIG))
+    rows = list(load_data_csv(csv).values())[:TRAIN_CHECK_BATCH]
+    reader = WavReader(FS, 3.0, speed_pertub=True, rng=random.Random(0))
+    enc = SpkLabelEncoder(csv)
+    samples = [reader(r["wav"]) for r in rows]
+    batch = {"wavs": torch.from_numpy(np.stack([w for w, _ in samples])).cuda(),
+             "labels": torch.tensor([enc(r["spk"], sp) for r, (_, sp) in
+                                     zip(rows, samples)]).cuda()}
+    cfg = sv_train.SVTrainConfig(
+        num_classes=3 * len(enc), step_per_epoch=6,
+        embedding_size=config["embedding_size"])
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device="cuda")
+
+    def plain_fbank(wav):
+        feats = fk.fbank_plain(wav, fb._B, fb._mel,
+                               frame_length=fb.cfg.frame_length,
+                               frame_shift=fb.cfg.frame_shift)
+        return feats - feats.mean(dim=-2, keepdim=True)
+
+    base = build_model(config, seed=5).cuda()
+
+    def one_step(feature_fn, remat):
+        model = copy.deepcopy(base)
+        state = sv_train.init_sv_train_state(model, cfg, seed=5, device="cuda")
+        step = sv_train.make_sv_train_step(model, cfg._replace(remat=remat),
+                                           feature_fn=feature_fn)
+        torch.cuda.reset_peak_memory_stats()
+        launches = fk.fbank_features.launches
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return (float(metrics["loss"]), state.model.state_dict(),
+                fk.fbank_features.launches - launches,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    k1_loss, k1_sd, k1_n, mem_plain = one_step(fb, False)
+    pl_loss, pl_sd, pl_n, _ = one_step(plain_fbank, False)
+    rm_loss, rm_sd, rm_n, mem_remat = one_step(fb, True)
+    if (k1_n, pl_n, rm_n) != (1, 0, 1):
+        raise AssertionError(f"train step launches K1 {(k1_n, pl_n, rm_n)}; "
+                             f"want 1 through K1, 0 through the plain fbank")
+
+    def worst(a, b, keys):
+        return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+    params = [n for n, _ in base.named_parameters()]
+    start = base.state_dict()
+    name = max(params, key=lambda k: float((k1_sd[k] - pl_sd[k]).abs().max()))
+    update = float((pl_sd[name] - start[name]).abs().max())
+    stats_keys = [k for k in k1_sd if k.endswith(("running_mean",
+                                                  "running_var"))]
+    out = {"k1_vs_plain_loss_rel": abs(k1_loss - pl_loss) / abs(pl_loss),
+           "k1_vs_plain_param_max_abs": worst(k1_sd, pl_sd, params),
+           "k1_vs_plain_stats_max_abs": worst(k1_sd, pl_sd, stats_keys),
+           "remat_vs_plain_loss_rel": abs(rm_loss - k1_loss) / abs(k1_loss),
+           "remat_vs_plain_stats_max_abs": worst(rm_sd, k1_sd, stats_keys),
+           "remat_vs_plain_param_max_abs": worst(rm_sd, k1_sd, params),
+           "k1_vs_plain_worst_param": name,
+           "k1_vs_plain_worst_param_update_max_abs": update,
+           "loss": k1_loss, "peak_gib_b64_plain": mem_plain,
+           "peak_gib_b64_remat": mem_remat}
+    if not (np.isfinite(k1_loss) and out["k1_vs_plain_loss_rel"] <= 1e-3
+            and out["k1_vs_plain_param_max_abs"] <= TRAIN_STEP_PARAM_ATOL):
+        raise AssertionError(f"train step through K1 vs the plain fbank: {out}")
+    for k in stats_keys:
+        torch.testing.assert_close(rm_sd[k], k1_sd[k], rtol=1e-5, atol=1e-5)
+    if not out["remat_vs_plain_loss_rel"] <= 1e-5:
+        raise AssertionError(f"train step with remat vs without: {out}")
+    return out
+
+
+def phase_train(work: str, sv: dict, smi: str) -> dict:
+    """The trainer's CLI on the card at the config's full width, the train
+    step's card checks, then extract --exp_dir on the trained experiment."""
+    import torch
+
+    from speaker3d_tpu_torch.cli import extract
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+
+    folder = os.path.join(work, "train")
+    t0 = time.perf_counter()
+    csv, noise, rir = train_corpus(folder)
+    corpus_s = time.perf_counter() - t0
+    run = _train_cli(folder, csv, noise, rir)
+    log(f"[train] {smi}: cli.train on {TRAIN_CONFIG} (17.8M ERes2NetV2, "
+        f"remat, speed perturbation, aug_prob 0.6), {run['steps']} steps of "
+        f"batch {run['batch']}: step {run['step_ms_median']:.1f} ms (median, "
+        f"CUDA events; the first {run['first_step_ms']:.1f}), "
+        f"{run['samples_per_s']:.1f} samples/s, data_wait_s "
+        f"{run['data_wait_s']:.2f} of {run['epoch_s']:.2f} s "
+        f"({run['data_wait_share']:.1%}), max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.2f} GiB; launches K1 {run['k1']} "
+        f"({run['k1'] / run['steps']:.0f} per step) K2 {run['k2']}; avg_loss "
+        f"{run['avg_loss']:.4f}; the process {run['process_wall_s']:.1f} s "
+        f"(corpus of {TRAIN_SPEAKERS * TRAIN_UTTS} utterances written in "
+        f"{corpus_s:.1f} s)" + (f"; CUT: {run['cut']}" if run["cut"] else ""))
+    checks = _train_step_checks(csv)
+    log(f"[train step B={TRAIN_CHECK_BATCH}] through K1 vs the plain fbank: "
+        f"loss rel {checks['k1_vs_plain_loss_rel']:.3g} (<= 1e-3), parameters "
+        f"max abs {checks['k1_vs_plain_param_max_abs']:.3g} (<= "
+        f"{TRAIN_STEP_PARAM_ATOL:g}; {checks['k1_vs_plain_worst_param']}, whose "
+        f"step moved it by up to "
+        f"{checks['k1_vs_plain_worst_param_update_max_abs']:.3g}), running stats max abs "
+        f"{checks['k1_vs_plain_stats_max_abs']:.3g}; remat vs without: loss "
+        f"rel {checks['remat_vs_plain_loss_rel']:.3g}, running stats max abs "
+        f"{checks['remat_vs_plain_stats_max_abs']:.3g} (<= 1e-5), parameters "
+        f"max abs {checks['remat_vs_plain_param_max_abs']:.3g}; peak memory "
+        f"{checks['peak_gib_b64_plain']:.2f} GiB without remat, "
+        f"{checks['peak_gib_b64_remat']:.2f} GiB with")
+
+    # extract --exp_dir on the trained experiment: K1 and K2 on the main
+    # path, each utterance against its plan through the plain functions
+    out_dir = os.path.join(folder, "extract")
+    t0 = time.perf_counter()
+    k1, k2 = _counted(lambda: extract.main(
+        ["--exp_dir", run["exp"], "--data", sv["scp"], "--out_dir", out_dir]))
+    wall = time.perf_counter() - t0
+    got = _finite_store(out_dir)
+    if not (k1 > 0 and k2 == 7 * k1):
+        raise AssertionError(f"extract --exp_dir: launches K1 {k1} K2 {k2}")
+    model = extract.build_model_from_exp(run["exp"])[0].cuda()
+    plain = _plain_fn(model, KaldiFbank(FbankConfig(), device="cuda"))
+    want = {u: embed_mean_over_plan(plain, w, plan_chunks(
+        len(w), [SV_CHUNK], 90 * FS)) for u, w in sv["wavs"].items()}
+    cos = _min_cosine(got, want, "extract --exp_dir vs the plain functions")
+    unit = np.stack([v / np.linalg.norm(v) for v in got.values()])
+    spread = float((unit @ unit.T).min())
+    log(f"[train extract --exp_dir] {len(got)} utterances, launches K1 {k1} "
+        f"K2 {k2}, {wall:.3f} s; min cosine against the plain functions "
+        f"{cos:.7f}; min cosine between two utterances {spread:.4f}")
+    del model
+    torch.cuda.empty_cache()
+    run.update(checks, extract_k1=k1, extract_k2=k2,
+               extract_min_cosine=cos, extract_wall_s=wall,
+               extract_min_pair_cosine=spread)
+    return {"k1": run["k1"], "k2": run["k2"], "extract_k1": k1,
+            "extract_k2": k2, "stats": run}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     device = phase_device()
@@ -1541,8 +1842,9 @@ def main() -> int:
         server = phase_server(work, pipe["models"], device["smi"])
         diar_cluster = phase_diar_cluster(work, pipe["models"], device["smi"])
         analysis = phase_analysis(work, pipe["models"], sv)
+        train = phase_train(work, sv, device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
-    k1 = phase_k1(lengths, pipe["main_len"])
+    k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"])
     k2 = phase_k2(lengths, pipe["main_len"])
     k3 = phase_k3()
     phase_nnchain()
@@ -1553,7 +1855,9 @@ def main() -> int:
                                  "backbones": backbones[key],
                                  "server": server[key],
                                  "diarization_clustering": diar_cluster[key],
-                                 "analysis": analysis[key]}
+                                 "analysis": analysis[key],
+                                 "train": train[key],
+                                 "train_extract": train[f"extract_{key}"]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -1561,7 +1865,9 @@ def main() -> int:
                     "diarization_clustering": {
                         k: v for k, v in diar_cluster.items()
                         if k not in ("k1", "k2")},
-                    "analysis": analysis["stats"], "cluster": cluster}))
+                    "analysis": analysis["stats"], "cluster": cluster,
+                    "train": {k: v for k, v in train["stats"].items()
+                              if k != "exp"}}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

@@ -7,8 +7,8 @@ the speech segments (the diarization pipeline, on ``--device``) ->
 pairwise cosines (float64 on the host); single-speaker iff the minimum
 pairwise cosine >= threshold (default 0.8). JSON output with segments,
 min/mean cosine and pairwise similarities; batch mode over a directory.
-``--exp_dir`` is refused: it reads the trainer's experiment layout
-(ROADMAP.md, M12).
+``--exp_dir`` (a trained experiment of either trainer) replaces
+``--model_id``.
 
 Usage:
   python -m speaker3d_tpu_torch.cli.check_single_speaker --wav a.wav \
@@ -26,7 +26,7 @@ import os
 
 import numpy as np
 
-from speaker3d_tpu_torch.cli.extract import EXP_DIR_NOT_PORTED
+from speaker3d_tpu_torch.cli.extract import load_model
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.diar.cluster import cosine_affinity
 
@@ -78,8 +78,7 @@ def get_args(argv=None):
                    default="iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common")
     p.add_argument("--local_model_dir", default="pretrained")
     p.add_argument("--exp_dir", default=None,
-                   help="a trained experiment instead of --model_id "
-                        "(not ported yet)")
+                   help="a trained experiment instead of --model_id")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device of the embeddings; 'cpu' must be "
                         "asked for")
@@ -87,15 +86,12 @@ def get_args(argv=None):
 
 
 def main(argv=None):
-    from speaker3d_tpu_torch.cli.registry import load_pretrained
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
 
     args = get_args(argv)
-    if args.exp_dir:
-        raise SystemExit(EXP_DIR_NOT_PORTED)
     device = resolve_device(args.device)
-    model = load_pretrained(args.model_id, args.local_model_dir)
+    model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high")
     pipe = DiarizationPipeline(embed_fn, device=device)
 

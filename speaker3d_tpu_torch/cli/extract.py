@@ -17,9 +17,12 @@ Usage:
   python -m speaker3d_tpu_torch.cli.extract --model_id ID --data wav.scp \
       --out_dir embeddings [--mode chunked|exact] [--out_type npz|ark] \
       [--local_model_dir pretrained] [--device cuda]
+  python -m speaker3d_tpu_torch.cli.extract --exp_dir exp/foo --data wav.scp \
+      --out_dir exp/foo/embeddings
 
-``--exp_dir`` (a trained experiment) stops with a message naming its
-ROADMAP.md item: the port has no trainer yet.
+``--exp_dir`` takes an experiment of either trainer (``cli/train.py`` of
+this package or of the JAX package): its ``config.yaml`` names the model,
+its latest checkpoint holds the weights.
 """
 
 from __future__ import annotations
@@ -41,15 +44,12 @@ MAX_SECONDS = 90.0
 # batches issued to the card before the oldest result is read back, so that
 # host decode and packing overlap the card's work
 IN_FLIGHT = 3
-EXP_DIR_NOT_PORTED = ("--exp_dir: not ported to the PyTorch package yet; it "
-                      "reads the JAX trainer's experiment layout "
-                      "(ROADMAP.md, M12)")
 
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="Extract speaker embeddings")
     p.add_argument("--exp_dir", default=None,
-                   help="experiment dir with config + ckpt (not ported yet)")
+                   help="experiment dir with config + ckpt")
     p.add_argument("--model_id", default=None, help="pretrained model id (registry)")
     p.add_argument("--local_model_dir", default="pretrained")
     p.add_argument("--data", required=True, help="wav.scp")
@@ -71,6 +71,38 @@ def get_args(argv=None):
                    help="torch device of the embed call; 'cpu' must be "
                         "asked for")
     return p.parse_args(argv)
+
+
+def build_model_from_exp(exp_dir: str):
+    """(model in eval mode with the latest checkpoint's weights, config) of
+    an experiment written by either trainer: the config's ``model.obj``
+    maps to this package's class, and the checkpoint's ``train_state``
+    holds this package's ``model/...`` tree or the JAX trainer's
+    ``params/...`` and ``batch_stats/...``."""
+    from speaker3d_tpu_torch.train.sv_train import model_state_dict_from_tree
+    from speaker3d_tpu_torch.utils.builder import dynamic_import
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    config = build_config(os.path.join(exp_dir, "config.yaml"))
+    model_cls = dynamic_import(config["model"]["obj"])
+    model = model_cls(**config["model"].get("args", {}))
+    states = Checkpointer(os.path.join(exp_dir, "models")).recover_if_possible()
+    if states is None or "train_state" not in states:
+        raise FileNotFoundError(f"no checkpoint under {exp_dir}/models")
+    model.load_state_dict(model_state_dict_from_tree(
+        states["train_state"], like=model.state_dict()), strict=True)
+    return model.eval(), config
+
+
+def load_model(exp_dir, model_id, local_model_dir):
+    """The CLIs' model: a trained experiment when ``exp_dir`` is given,
+    else the registry id's checkpoint under ``local_model_dir``."""
+    if exp_dir:
+        return build_model_from_exp(exp_dir)[0]
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+
+    return load_pretrained(model_id, local_model_dir)
 
 
 def upload_batch(wavs: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -167,21 +199,18 @@ def write_embeddings(out_dir: str, embs, out_type: str) -> None:
 
 
 def main(argv=None):
-    from speaker3d_tpu_torch.cli.registry import load_pretrained
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.parallel.mesh import process_shard
     from speaker3d_tpu_torch.utils.fanout import maybe_fanout
     from speaker3d_tpu_torch.utils.fileio import load_wav_scp
 
     args = get_args(argv)
-    if args.exp_dir:
-        raise SystemExit(EXP_DIR_NOT_PORTED)
-    if not args.model_id:
-        raise SystemExit("--model_id is required")
+    if not (args.exp_dir or args.model_id):
+        raise SystemExit("one of --exp_dir / --model_id is required")
     device = resolve_device(args.device)
     if maybe_fanout("speaker3d_tpu_torch.cli.extract", argv, args.nprocs):
         return
-    model = load_pretrained(args.model_id, args.local_model_dir)
+    model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
 
     wav_scp = load_wav_scp(args.data)
     shard_scp = {k: wav_scp[k] for k in process_shard(sorted(wav_scp))}

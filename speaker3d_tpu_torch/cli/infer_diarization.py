@@ -15,9 +15,10 @@ Usage:
 Clustering: AHC (default), spectral (the upstream recipe's; float64 on the
 host, or its affinity, Laplacian and eigenpairs on ``--device`` with
 ``--cluster_backend device``; ``--cluster_pval``, ``--cluster_seed``) or
-UMAP+HDBSCAN (the UMAP layout on ``--device``). Flags whose modules are not
-ported yet (--exp_dir, --vad_exp_dir, --include_overlap) stop with a
-message naming their ROADMAP.md item.
+UMAP+HDBSCAN (the UMAP layout on ``--device``). ``--exp_dir`` (a trained
+experiment of either trainer) replaces ``--model_id``. Flags whose modules
+are not ported yet (--vad_exp_dir, --include_overlap) stop with a message
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,8 +40,7 @@ def get_args(argv=None):
                    help="torch device for the embeddings and the device "
                         "clustering paths; 'cpu' must be asked for")
     p.add_argument("--exp_dir", default=None,
-                   help="a trained experiment instead of --model_id "
-                        "(not ported yet)")
+                   help="a trained experiment instead of --model_id")
     p.add_argument("--out_type", choices=["rttm", "json"], default="rttm")
     p.add_argument("--speaker_num", type=int, default=None)
     p.add_argument("--vad_threshold", type=float, default=0.5)
@@ -105,14 +105,11 @@ def get_args(argv=None):
 
 def _refuse_unported(args) -> None:
     unported = []
-    if args.exp_dir:
-        unported.append("--exp_dir (the trainer's experiment layout, ROADMAP.md M12)")
     if args.vad_exp_dir:
-        unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11b, "
-                        "after M12's experiment loader)")
+        unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11b)")
     if args.include_overlap:
         unported.append("--include_overlap (diar/overlap.py, ROADMAP.md "
-                        "M11b, after M12's experiment loader)")
+                        "M11b)")
     if unported:
         raise SystemExit("not ported to the PyTorch package yet: "
                          + "; ".join(unported))
@@ -132,7 +129,7 @@ def collect_wavs(specs):
 
 
 def main(argv=None):
-    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.cli.extract import load_model
     from speaker3d_tpu_torch.device import resolve_device
     from speaker3d_tpu_torch.diar.cluster import CommonClustering
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
@@ -149,7 +146,7 @@ def main(argv=None):
                     args.nprocs):
         return
 
-    model = load_pretrained(args.model_id, args.local_model_dir)
+    model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high")
     cluster = None
     if args.cluster_type != "AHC" or args.cluster_backend != "auto":

@@ -12,7 +12,8 @@ Usage:
   python -m speaker3d_tpu_torch.cli.infer_sv_batch --model_id ID \
       --wavs list.txt --out_dir embs [--out_type npy|npz|ark] [--device cuda]
 
-``--exp_dir`` stops with a message naming its ROADMAP.md item.
+``--exp_dir`` (a trained experiment of either trainer) replaces
+``--model_id``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def get_args(argv=None):
                    default="iic/speech_eres2netv2_sv_zh-cn_16k-common")
     p.add_argument("--local_model_dir", default="pretrained")
     p.add_argument("--exp_dir", default=None,
-                   help="a trained experiment (not ported yet)")
+                   help="a trained experiment instead of --model_id")
     p.add_argument("--wavs", required=True,
                    help="wav path, dir, or list file (one path per line)")
     p.add_argument("--out_dir", required=True)
@@ -56,22 +57,19 @@ def get_args(argv=None):
 
 def main(argv=None):
     from speaker3d_tpu_torch.cli.extract import (
-        EXP_DIR_NOT_PORTED, extract_embeddings, write_embeddings)
+        extract_embeddings, load_model, write_embeddings)
     from speaker3d_tpu_torch.cli.infer_diarization import collect_wavs
-    from speaker3d_tpu_torch.cli.registry import load_pretrained
     from speaker3d_tpu_torch.device import resolve_device
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.parallel.mesh import process_shard
     from speaker3d_tpu_torch.utils.fanout import maybe_fanout
 
     args = get_args(argv)
-    if args.exp_dir:
-        raise SystemExit(EXP_DIR_NOT_PORTED)
     device = resolve_device(args.device)
     if maybe_fanout("speaker3d_tpu_torch.cli.infer_sv_batch", argv,
                     args.nprocs):
         return
-    model = load_pretrained(args.model_id, args.local_model_dir)
+    model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
 
     scp = {}
     for p in process_shard(collect_wavs([args.wavs])):

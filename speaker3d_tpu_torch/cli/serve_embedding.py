@@ -16,8 +16,8 @@ Protocol: newline-delimited JSON per connection;
   {"id": "x", "pcm_b64": <b64 float32 mono>, "fs": 16000} -> raw request
   response: {"id": "x", "embedding": [...], "dim": D} | {"id", "error"}
 Semantics match infer_sv_batch: 10 s circle-padded chunks, mean embedding,
-90 s cap. The server runs on one host and one card. ``--exp_dir`` stops
-with a message naming its ROADMAP.md item.
+90 s cap. The server runs on one host and one card. ``--exp_dir`` (a
+trained experiment of either trainer) replaces ``--model_id``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from speaker3d_tpu_torch.device import DEFAULT_DEVICE
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="Embedding serving daemon")
     p.add_argument("--exp_dir", default=None,
-                   help="a trained experiment (not ported yet)")
+                   help="a trained experiment instead of --model_id")
     p.add_argument("--model_id", default=None)
     p.add_argument("--local_model_dir", default="pretrained")
     p.add_argument("--socket", default=None, help="unix socket path")
@@ -52,19 +52,16 @@ def get_args(argv=None):
 
 
 def main(argv=None):
-    from speaker3d_tpu_torch.cli.extract import EXP_DIR_NOT_PORTED
-    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.cli.extract import load_model
     from speaker3d_tpu_torch.device import resolve_device
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.serve import serve
 
     args = get_args(argv)
-    if args.exp_dir:
-        raise SystemExit(EXP_DIR_NOT_PORTED)
-    if not args.model_id:
+    if not (args.exp_dir or args.model_id):
         raise SystemExit("one of --exp_dir / --model_id is required")
     device = resolve_device(args.device)
-    model = load_pretrained(args.model_id, args.local_model_dir)
+    model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high",
                                   sample_rate=args.sample_rate)
     buckets = ([float(s) for s in args.buckets.split(",")]

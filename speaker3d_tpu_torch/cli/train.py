@@ -1,0 +1,259 @@
+"""Supervised SV trainer CLI on one CUDA card (or the CPU when asked).
+
+The counterpart of ``speaker3d_tpu/cli/train.py``: build the config (YAML +
+``--key=value`` overrides, written to ``exp_dir/config.yaml``), the dataset
+and threaded loader, the model and classifier, the schedules; recover from
+the experiment's latest checkpoint, or warm-start from ``init_exp_dir``
+(model and classifier weights, optimizer and step reset); then per epoch
+the train loop, one ``train_epoch.log`` line (with ``data_wait_s``, the
+time the loop waited on the loader) and one checkpoint.
+
+Usage:
+  python -m speaker3d_tpu_torch.cli.train --config configs/eres2netv2.yaml \
+      [--device cuda] [--any_yaml_key=value ...]
+
+``batch_size`` is the global batch, all of it on this card. Deliberate
+differences from the JAX CLI: the model's initial weights and the classifier
+draw from torch generators seeded by ``--seed`` (the JAX PRNG stream cannot
+be reproduced); one card only (``model_parallel > 1`` is ROADMAP.md M14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import time
+
+import torch
+
+from speaker3d_tpu_torch.data.dataset import BatchLoader, WavSVDataset
+from speaker3d_tpu_torch.data.prefetch import device_prefetch
+from speaker3d_tpu_torch.data.processors import SpkLabelEncoder, SpkVeriAug, WavReader
+from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.train.sv_train import (
+    SVTrainConfig, init_sv_train_state, load_state_tree, make_sv_train_step,
+    state_tree)
+from speaker3d_tpu_torch.utils.builder import dynamic_import
+from speaker3d_tpu_torch.utils.checkpoint import Checkpointer, EpochCounter, EpochLogger
+from speaker3d_tpu_torch.utils.config import build_config
+from speaker3d_tpu_torch.utils.misc import fetch_mean, set_seed
+from speaker3d_tpu_torch.utils.preemption import (
+    GracefulShutdown, save_preemption_checkpoint)
+from speaker3d_tpu_torch.utils.profiling import StepTracer
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train a speaker embedding model")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--device", default=DEFAULT_DEVICE,
+                        help="torch device of the train step; 'cpu' must be "
+                             "asked for")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of a window of "
+                             "train steps (utils/profiling.py)")
+    parser.add_argument("--profile_steps", type=int, default=5)
+    args, overrides = parser.parse_known_args(argv)
+    return args, overrides
+
+
+class _TimedIter:
+    """Meters how long the consumer blocks on the prefetch queue: the host
+    loader's share of the epoch wall."""
+
+    def __init__(self, inner):
+        self.it = iter(inner)
+        self.wait = 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = time.time()
+        try:
+            return next(self.it)
+        finally:
+            self.wait += time.time() - t
+
+    def close(self):
+        close = getattr(self.it, "close", None)
+        if close is not None:
+            close()
+
+
+class _StepClock:
+    """Step-start marks: CUDA events on the card (read once, after the
+    epoch, so the loop never waits on the card), the host clock on the CPU.
+    ``ms()`` gives the intervals between consecutive marks."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self):
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
+
+
+def build_model(config, seed: int) -> torch.nn.Module:
+    """The config's model, its initial weights drawn from torch's CPU
+    generator seeded with ``seed`` (the global generator left as it was)."""
+    model_cls = dynamic_import(config["model"]["obj"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return model_cls(**config["model"].get("args", {}))
+
+
+def main(argv=None):
+    args, overrides = get_args(argv)
+    device = resolve_device(args.device)
+    set_seed(args.seed)
+    config = build_config(args.config, overrides, copy_to_exp_dir=True)
+    exp_dir = config["exp_dir"]
+    os.makedirs(exp_dir, exist_ok=True)
+
+    # every random draw of the data pipeline (speeds, crops, augmentation)
+    # comes from this generator, seeded as the JAX CLI seeds the global one
+    data_rng = random.Random(args.seed)
+    wav_reader = WavReader(
+        sample_rate=config.get("sample_rate", 16000),
+        duration=config.get("wav_len", 3.0),
+        speed_pertub=config.get("speed_pertub", True), rng=data_rng)
+    label_encoder = SpkLabelEncoder(config["data"])
+    aug = SpkVeriAug(
+        aug_prob=config.get("aug_prob", 0.0),
+        noise_file=config.get("noise"), reverb_file=config.get("reverb"),
+        rng=data_rng) if config.get("aug_prob", 0.0) > 0 else None
+    dataset = WavSVDataset(config["data"], wav_reader, label_encoder, aug)
+
+    wire = config.get("wire_dtype", "int16")
+    if wire not in ("float32", "int16"):
+        raise ValueError(
+            f"config key 'wire_dtype' must be 'float32' or 'int16', "
+            f"got {wire!r}")
+    loader = BatchLoader(
+        dataset, batch_size=config.get("batch_size", 128),
+        num_workers=config.get("num_workers", 8), seed=args.seed,
+        wire_dtype=None if wire == "float32" else wire)
+    step_per_epoch = len(loader)
+
+    model = build_model(config, args.seed)
+    cfg = SVTrainConfig(
+        num_classes=dataset.num_classes,
+        embedding_size=config.get("embedding_size", 192),
+        momentum=config.get("momentum", 0.9),
+        nesterov=config.get("nesterov", True),
+        weight_decay=config.get("weight_decay", 1e-4),
+        min_lr=config.get("min_lr", 1e-4),
+        max_lr=config.get("max_lr", 0.2),
+        warmup_epoch=config.get("warmup_epoch", 5),
+        fix_epoch=config.get("num_epoch", 70),
+        step_per_epoch=max(step_per_epoch, 1),
+        initial_margin=config.get("initial_margin", 0.0),
+        final_margin=config.get("final_margin", 0.3),
+        increase_start_epoch=config.get("increase_start_epoch", 20),
+        margin_fix_epoch=config.get("margin_fix_epoch", 50),
+        scale=config.get("scale", 32.0),
+        remat=config.get("remat", False),
+        compute_dtype=config.get("compute_dtype", "float32"),
+    )
+    fbank = KaldiFbank(FbankConfig(
+        sample_rate=config.get("sample_rate", 16000),
+        num_mel_bins=config.get("n_mels", 80)), mean_norm=True, device=device)
+    train_step = make_sv_train_step(
+        model, cfg, feature_fn=fbank,
+        model_parallel=config.get("model_parallel", 1))
+    state = init_sv_train_state(model, cfg, seed=args.seed, device=device)
+
+    epoch_counter = EpochCounter(config.get("num_epoch", 70))
+    checkpointer = Checkpointer(os.path.join(exp_dir, "models"),
+                                recoverables={"epoch_counter": epoch_counter})
+    recovered = checkpointer.recover_if_possible()
+    if recovered is not None and "train_state" in recovered:
+        load_state_tree(state, recovered["train_state"])
+        print(f"recovered from epoch {recovered['__meta__']['epoch']}")
+    elif config.get("init_exp_dir"):
+        # warm start for a large-margin finetune: the weights of another
+        # experiment (either trainer's), optimizer and step reset
+        src = Checkpointer(os.path.join(config["init_exp_dir"], "models")
+                           ).recover_if_possible()
+        if src is None or "train_state" not in src:
+            raise FileNotFoundError(
+                f"--init_exp_dir: no checkpoint under "
+                f"{config['init_exp_dir']}/models")
+        load_state_tree(state, src["train_state"], optimizer=False)
+        print(f"warm start from {config['init_exp_dir']} "
+              f"(epoch {src['__meta__']['epoch']}), optimizer reset")
+
+    logger = EpochLogger(os.path.join(exp_dir, "train_epoch.log"))
+    label_encoder.save(os.path.join(exp_dir, "label_encoder.pkl"))
+    log_every = config.get("log_batch_freq", 50)
+    shutdown = GracefulShutdown()
+    preempted = False
+    tracer = StepTracer(args.profile_dir, num_steps=args.profile_steps)
+    global_step = 0
+    for epoch in epoch_counter:
+        loader.set_epoch(epoch)
+        t0 = time.time()
+        losses, accs = [], []
+        timed = _TimedIter(device_prefetch(loader, device))
+        clock = _StepClock(device)
+        for i, batch in enumerate(timed):
+            clock.mark()
+            tracer.before_step(global_step)
+            metrics = train_step(state, batch)
+            tracer.after_step(global_step, wait_for=metrics["loss"])
+            global_step += 1
+            if shutdown.poll():
+                preempted = True
+                break
+            # device scalars, read once per epoch (or at a log line)
+            losses.append(metrics["loss"])
+            accs.append(metrics["acc"])
+            if (i + 1) % log_every == 0:
+                print(f"epoch {epoch} step {i+1}/{step_per_epoch} "
+                      f"loss {float(losses[-1]):.4f} "
+                      f"acc {float(accs[-1]):.3f} "
+                      f"lr {float(metrics['lr']):.5f} "
+                      f"margin {float(metrics['margin']):.3f}", flush=True)
+        clock.mark()
+        timed.close()
+        if preempted:
+            save_preemption_checkpoint(checkpointer, epoch_counter, epoch,
+                                       {"train_state": state_tree(state)})
+            break
+        logger.log_stats(
+            {"epoch": epoch, "time_s": round(time.time() - t0, 1),
+             "data_wait_s": round(timed.wait, 1)},
+            {"avg_loss": fetch_mean(losses) if losses else None,
+             "avg_acc": fetch_mean(accs) if accs else None})
+        intervals = clock.ms()
+        if intervals:
+            step_ms = sorted(intervals)
+            med = step_ms[len(step_ms) // 2]
+            peak = (f", peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                    if device.type == "cuda" else "")
+            print(f"epoch {epoch}: {len(step_ms)} steps of {loader.batch_size}, "
+                  f"step {med:.1f} ms (median; the first {intervals[0]:.1f}), "
+                  f"{loader.batch_size / med * 1e3:.1f} samples/s, "
+                  f"data_wait_s {timed.wait:.2f} of {time.time() - t0:.2f} s"
+                  f"{peak}", flush=True)
+        checkpointer.save_checkpoint(epoch, {"train_state": state_tree(state)})
+    tracer.close()
+    shutdown.finalize(preempted)
+
+
+if __name__ == "__main__":
+    main()

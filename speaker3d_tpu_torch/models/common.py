@@ -1,19 +1,82 @@
-"""Shared model helpers."""
+"""Shared model helpers.
+
+Every BatchNorm of the port's models comes from ``batch_norm2d`` /
+``batch_norm1d``: torch's BatchNorm modules (same state_dict names, same
+eval mode) whose training mode updates the running statistics as the JAX
+package's ``flax.linen.BatchNorm`` does: ``running = 0.99 * running + 0.01 *
+batch``, with the *biased* batch variance (torch's own default is momentum
+0.1 with the unbiased variance). ``frozen_running_stats`` turns the update
+off for a block, as the recomputation of a checkpointed block needs.
+"""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # Flax BatchNorm's default epsilon, which the JAX models use
+BN_MOMENTUM = 0.99  # Flax BatchNorm's default, which the JAX models use
+
+_frozen = [0]  # > 0 inside ``frozen_running_stats``
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within the block, BatchNorm in training mode normalises with batch
+    statistics but leaves its running statistics as they are."""
+    _frozen[0] += 1
+    try:
+        yield
+    finally:
+        _frozen[0] -= 1
+
+
+class _FlaxStatsBatchNorm:
+    """Training-mode forward with Flax's running-statistics update."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        # momentum 1.0 leaves exactly this batch's mean and unbiased
+        # variance in the scratch buffers, from the same fused kernel that
+        # normalises the output (the same call when frozen, so that a
+        # checkpointed block's recomputation saves the same tensors)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        if _frozen[0]:
+            return out
+        n = x.numel() // x.shape[1]
+        keep = BN_MOMENTUM
+        with torch.no_grad():
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            # unbiased -> biased: Flax updates with the biased variance
+            self.running_var.mul_(keep).add_(
+                var, alpha=(1.0 - keep) * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
+    pass
 
 
 def batch_norm2d(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
 
 def batch_norm1d(channels: int, affine: bool = True) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(channels, eps=BN_EPS, affine=affine)
+    return BatchNorm1d(channels, eps=BN_EPS, affine=affine,
+                       momentum=1.0 - BN_MOMENTUM)
 
 
 def relu20(x):

@@ -2,12 +2,13 @@
 Kaldi-style ``wav.scp`` lists.
 
 The port's own copy of the audio half of ``speaker3d_tpu/utils/fileio.py``
-and of its ``load_wav_scp``: stdlib ``wave`` + numpy for PCM WAV, polyphase
-resampling with scipy.
+and of its ``load_wav_scp`` and ``load_data_csv``: stdlib ``wave`` + numpy
+for PCM WAV, polyphase resampling with scipy.
 """
 
 from __future__ import annotations
 
+import csv
 import io
 import os
 import wave
@@ -132,3 +133,17 @@ def load_wav_scp(fpath):
     with open(fpath) as f:
         rows = [line.strip().split(None, 1) for line in f if line.strip()]
     return {k: v for k, v in rows}
+
+
+def load_data_csv(fpath):
+    """CSV index keyed by its mandatory unique 'ID' column: {id: row}."""
+    with open(fpath, newline="") as f:
+        result = {}
+        for row in csv.DictReader(f, skipinitialspace=True):
+            if "ID" not in row:
+                raise KeyError("CSV file must have an 'ID' field with unique ids.")
+            data_id = row.pop("ID")
+            if data_id in result:
+                raise ValueError(f"Duplicate id: {data_id}")
+            result[data_id] = row
+    return result

@@ -76,10 +76,11 @@ def _oracle_ok(got, want) -> bool:
 
 # the path's batches (on 132 SMs the launch picks blocks of 5, 10 and 12
 # m-tiles there, the 5 with two warps each), one file alone, a ragged last
-# tile, and blocks of 8 m-tiles x 2 warps (132 rows of 256 frames)
+# tile, blocks of 8 m-tiles x 2 warps (132 rows of 256 frames), and the
+# trainer's batch of 3 s crops (configs/eres2netv2.yaml)
 @pytest.mark.parametrize("batch,n", [(64, 24000), (64, 48000), (64, 120000),
                                      (1, 48000), (1, 960000), (3, 41000),
-                                     (132, 41200)])
+                                     (132, 41200), (256, 48000)])
 def test_fbank_kernel_at_the_path_batches(cuda, batch, n):
     rng = np.random.default_rng(batch + n)
     wav = torch.from_numpy((rng.standard_normal((batch, n)) * 0.1)
@@ -478,3 +479,114 @@ def test_probe_tool_runs_one_fused_launch(cuda, capsys):
     assert all(not r.error for r in run.results)
     probe_ops.empty_launch()
     torch.cuda.synchronize()
+
+
+# the trainer on the card: configs/eres2netv2.yaml's 17.8M ERes2NetV2 at
+# full width, one SGD step on 16 seeded 3 s crops
+TRAIN_ARGS = dict(feat_dim=80, embedding_size=192, base_width=26, scale=2,
+                  expansion=2)
+
+
+def _train_step_on_the_card(cuda, feature_fn, remat):
+    from speaker3d_tpu_torch.train import sv_train
+
+    torch.manual_seed(3)
+    model = ERes2NetV2(**TRAIN_ARGS)
+    cfg = sv_train.SVTrainConfig(num_classes=24, remat=remat,
+                                 step_per_epoch=10)
+    state = sv_train.init_sv_train_state(model, cfg, seed=3, device=cuda)
+    step = sv_train.make_sv_train_step(model, cfg, feature_fn=feature_fn)
+    rng = np.random.default_rng(3)
+    batch = {"wavs": torch.from_numpy(
+        np.clip(np.rint(rng.standard_normal((16, 48000)) * 3000), -32768,
+                32767).astype(np.int16)).to(cuda),
+             "labels": torch.from_numpy(rng.integers(0, 24, 16)).to(cuda)}
+    launches = fk.fbank_features.launches
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return (float(metrics["loss"]), state.model.state_dict(),
+            fk.fbank_features.launches - launches)
+
+
+def _plain_fbank(fb):
+    def feats(wav):
+        out = fk.fbank_plain(wav, fb._B, fb._mel, frame_length=400,
+                             frame_shift=160)
+        return out - out.mean(dim=-2, keepdim=True)
+    return feats
+
+
+def test_train_step_through_k1_matches_the_plain_fbank(cuda):
+    """K1 runs inside a step with autograd on (its input needs no
+    gradient); the step through it against the same step through the plain
+    fbank: loss to rtol 1e-3, parameters to 1e-3 (conv1's gradient sums
+    the two fbanks' weak-bin differences, which the Kaldi oracle allows up
+    to 2e-2: 1.8e-4 measured at lr 1e-4 on the H100)."""
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device=cuda)
+    k_loss, k_sd, k_n = _train_step_on_the_card(cuda, fb, False)
+    p_loss, p_sd, p_n = _train_step_on_the_card(cuda, _plain_fbank(fb), False)
+    assert (k_n, p_n) == (1, 0)
+    assert np.isfinite(k_loss)
+    assert k_loss == pytest.approx(p_loss, rel=1e-3)
+    for name, p in ERes2NetV2(**TRAIN_ARGS).named_parameters():
+        torch.testing.assert_close(k_sd[name], p_sd[name], rtol=0, atol=1e-3)
+    for k in k_sd:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(k_sd[k], p_sd[k], rtol=1e-4, atol=1e-5)
+
+
+def test_train_step_with_remat_equals_without_on_the_card(cuda):
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device=cuda)
+    loss, sd, _ = _train_step_on_the_card(cuda, fb, False)
+    r_loss, r_sd, _ = _train_step_on_the_card(cuda, fb, True)
+    assert r_loss == pytest.approx(loss, rel=1e-5, abs=1e-5)
+    for k in sd:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(r_sd[k], sd[k], rtol=1e-5, atol=1e-5)
+    assert int(r_sd["layer1.0.bn1.num_batches_tracked"]) == 1
+
+
+def test_device_prefetch_copies_batches_to_the_card(cuda):
+    from speaker3d_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"wavs": rng.integers(-9, 9, (8, 4000)).astype(np.int16),
+                "labels": np.arange(8, dtype=np.int32) + i} for i in range(7)]
+    out = []
+    for b in device_prefetch(iter(batches), cuda, depth=2):
+        assert all(t.is_cuda for t in b.values())
+        out.append({k: v.clone() for k, v in b.items()})
+        torch.cuda._sleep(1_000_000)  # the consumer's stream stays busy
+    torch.cuda.synchronize()
+    assert len(out) == 7
+    for got, want in zip(out, batches):
+        for k in want:
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+
+
+@pytest.mark.parametrize("kind,shape", [("2d", (16, 32, 40, 75)),
+                                        ("1d", (16, 32, 50)), ("1d", (64, 32))])
+def test_bn_training_statistics_on_the_card(cuda, kind, shape):
+    """cuDNN's training-mode BatchNorm inside the port's layers: Flax's
+    update (momentum 0.99, biased variance), computed here in float64."""
+    from speaker3d_tpu_torch.models.common import batch_norm1d, batch_norm2d
+
+    torch.manual_seed(0)
+    layer = (batch_norm2d if kind == "2d" else batch_norm1d)(shape[1]).to(cuda)
+    layer.train()
+    want_mean = layer.running_mean.double().clone()
+    want_var = layer.running_var.double().clone()
+    dims = [d for d in range(len(shape)) if d != 1]
+    for _ in range(3):
+        x = (torch.randn(shape, device=cuda) * 2.5 + 0.7)
+        out = layer(x)
+        xd = x.double()
+        want_mean = 0.99 * want_mean + 0.01 * xd.mean(dims)
+        want_var = 0.99 * want_var + 0.01 * xd.var(dims, unbiased=False)
+        ref = torch.nn.functional.batch_norm(x, None, None, layer.weight,
+                                             layer.bias, True, 0.0, layer.eps)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(layer.running_mean.double(), want_mean,
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(layer.running_var.double(), want_var,
+                               rtol=0, atol=1e-6)

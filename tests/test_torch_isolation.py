@@ -47,7 +47,12 @@ def test_package_has_the_slice_modules():
                  "diar.umap_native", "diar.der", "cli.compute_der",
                  "cli.check_single_speaker", "cli.analyze_similarity",
                  "models.pooling", "models.resnet", "models.res2net",
-                 "models.xvector", "models.classifier"):
+                 "models.xvector", "models.classifier", "utils.config",
+                 "utils.builder", "utils.misc", "utils.checkpoint",
+                 "utils.preemption", "utils.profiling", "train.schedulers",
+                 "train.losses", "train.sv_train", "data.resample",
+                 "data.augmentation", "data.processors", "data.dataset",
+                 "data.prefetch", "cli.train"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -106,7 +111,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
         analyze_similarity, check_single_speaker, compute_der,
         compute_score_metrics, extract, infer_diarization, infer_sv,
-        infer_sv_batch, serve_embedding)
+        infer_sv_batch, serve_embedding, train)
+    from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
     from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
@@ -131,6 +137,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--config", "c.yaml"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(device_prefetch(iter([])))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_embedding.main(["--model_id", "m"])
     for cli, argv in ((compute_der, ["--ref", "r", "--hyp", "h"]),

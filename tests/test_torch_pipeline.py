@@ -98,14 +98,18 @@ def test_cli_rttm_bytes_equal_jax(weights, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    """The flags whose modules wait for the trainer's experiment layout
-    (M12, M11b); --cluster_type spectral|umap_hdbscan run since they were
-    ported (tests/test_torch_diar_cli_extra.py)."""
-    for extra in (["--exp_dir", "x"], ["--vad_exp_dir", "x"],
-                  ["--include_overlap"]):
+    """The flags whose modules are not ported (M11b) stop;
+    --cluster_type spectral|umap_hdbscan run since they were ported
+    (tests/test_torch_diar_cli_extra.py), and --exp_dir since the trainer
+    was (tests/test_torch_train_cli.py): on a directory without an
+    experiment it fails loudly."""
+    for extra in (["--vad_exp_dir", "x"], ["--include_overlap"]):
         with pytest.raises(SystemExit, match="not ported"):
             tcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
                        "--device", "cpu"] + extra)
+    with pytest.raises(FileNotFoundError, match="config.yaml"):
+        tcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
+                   "--device", "cpu", "--exp_dir", str(tmp_path / "x")])
 
 
 def test_registry_refuses_unported_ids_and_missing_checkpoints(tmp_path):

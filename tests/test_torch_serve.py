@@ -314,10 +314,15 @@ def test_error_responses_equal_jax(embed_fn, tmp_path):
             thread.join(timeout=30)
 
 
-def test_cli_refuses_exp_dir_naming_m12():
+def test_cli_refuses_exp_dir_naming_m12(tmp_path):
+    """``--exp_dir`` is open since the trainer (M12) was ported: a
+    directory without an experiment is refused loudly, and neither flag
+    stops naming what is required."""
     assert serve_embedding.get_args([]).device == "cuda"
-    with pytest.raises(SystemExit, match="M12"):
-        serve_embedding.main(["--exp_dir", "exp", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="config.yaml"):
+        serve_embedding.main(["--exp_dir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--exp_dir / --model_id"):
+        serve_embedding.main(["--device", "cpu"])
 
 
 def test_cli_process_on_the_cpu_answers_a_request(tmp_path):

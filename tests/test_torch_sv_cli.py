@@ -176,8 +176,11 @@ def test_chunked_batches_match_one_chunk_at_a_time(work):
 
 @pytest.mark.parametrize("cli", [textract, tbatch])
 def test_exp_dir_is_refused_naming_m12(cli, tmp_path):
+    """``--exp_dir`` is open since the trainer (M12) was ported
+    (tests/test_torch_train_cli.py); a directory that holds no experiment
+    is refused loudly."""
     argv = ["--exp_dir", str(tmp_path), "--out_dir", str(tmp_path),
             "--device", "cpu"]
     argv += (["--data", "wav.scp"] if cli is textract else ["--wavs", "x"])
-    with pytest.raises(SystemExit, match="not ported.*M12"):
+    with pytest.raises(FileNotFoundError, match="config.yaml"):
         cli.main(argv)
