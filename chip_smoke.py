@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's diarization (every clustering type),
-speaker-verification, serving, analysis and training paths, every registry
-backbone and the recipe backbones, on one GPU.
+"""Drive the PyTorch/CUDA port's diarization (every clustering type, and
+the DNN front end), speaker-verification, serving, analysis and training
+paths (the SV, VAD and segmenter trainers), every registry backbone and the
+recipe backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -106,14 +107,33 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     --exp_dir`` on the trained experiment over the SV utterances (K1 and K2
     launched, each utterance against its plan through the plain functions
     at cosine >= 0.9999). K1 (item 7) is also held at the trainer's [256,
-    48000].
+    48000];
+15. the DNN front end: ``cli.train_vad`` and ``cli.train_segmentation``
+    side by side, each in a process of its own, on
+    ``configs/fsmn_vad.yaml`` and ``configs/fsmn_seg.yaml`` as they are
+    (full width) but for the paths and the cuts ``dataset_size`` and
+    ``num_epoch`` (printed), on a seeded corpus of the conversation's three
+    voices: ms a step, samples/s, data-wait share, peak memory, launches (K1
+    once a step); one step of each at its config's batch through K1
+    against the plain fbank (loss to rtol 1e-3, parameters to 1e-3); then
+    the diarization CLI with the 17.8M model, ``--vad_exp_dir`` and
+    ``--include_overlap --segmentation_exp_dir`` on the 120 s conversation
+    listed twice: per file K1 exactly 6 launches in the VAD and 29 in the
+    segmenter plus one per embed batch, K2 7x the embed batches, the VAD
+    flagging 20-98% of the frames, the stage times (``segmentation`` and
+    ``overlap_post`` among them), the RTTM's speakers; the DnnVAD's and
+    DnnSegmenter's probabilities through K1 against the plain fbank (max
+    abs difference, flips at the threshold counted and each within that
+    difference of it). K1 (item 7) is also held at the front ends' [4,
+    107760] and [8, 80000] and the trainers' [64, 64000] and [32, 80000],
+    and its share of the two front-end stages printed.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
 diarization, SV, backbone, server, clustering-CLI and analysis runs
-together, and in the training and ``extract --exp_dir`` runs
-(``launches_by_path`` apart).
+together, and in the training, ``extract --exp_dir``, DNN front-end and
+VAD/segmenter training runs (``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -237,7 +257,8 @@ def mma_sync_tf32_tflops() -> float:
 K1_OTHER = ((8000, 80, 80000), (48000, 80, 480000), (FS, 64, 10 * FS))
 
 
-def phase_k1(lengths, main_len: int, train_batch: int) -> dict:
+def phase_k1(lengths, main_len: int, train_batch: int,
+             dnn_shapes=()) -> dict:
     import torch
 
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
@@ -252,6 +273,7 @@ def phase_k1(lengths, main_len: int, train_batch: int) -> dict:
     for fs, mels, L, batch in ([(FS, 80, L, BATCH) for L in lengths]
                                + [(FS, 80, SV_LONGEST, 1)]
                                + [(FS, 80, TRAIN_CROP, train_batch)]
+                               + [(FS, 80, L, b) for b, L in dnn_shapes]
                                + [(*c, BATCH) for c in K1_OTHER]):
         cfg = FbankConfig(sample_rate=fs, num_mel_bins=mels)
         fb = KaldiFbank(cfg, device="cuda")
@@ -523,12 +545,17 @@ def phase_k3() -> dict:
             "library_ms": None, "shapes": rows}
 
 
+# the conversation's three voices: (f0 in Hz, harmonic amplitudes)
+CONVERSATION_VOICES = ((130.0, [1.0, 0.6, 0.3, 0.2]),
+                       (210.0, [1.0, 0.2, 0.5, 0.1]),
+                       (320.0, [1.0, 0.4, 0.1, 0.3]))
+
+
 def synth_conversation(seconds: float = 120.0, seed: int = 0) -> np.ndarray:
     """Three harmonic 'speakers' (distinct pitch and timbre) taking turns of
     2-6 s with 0.3-1.0 s pauses, seeded; PCM16-exact float32."""
     rng = np.random.default_rng(seed)
-    voices = [(130.0, [1.0, 0.6, 0.3, 0.2]), (210.0, [1.0, 0.2, 0.5, 0.1]),
-              (320.0, [1.0, 0.4, 0.1, 0.3])]
+    voices = CONVERSATION_VOICES
     out, n_total = [], int(seconds * FS)
     n, spk = 0, 0
     while n < n_total:
@@ -1560,15 +1587,15 @@ TRAIN_CHECK_BATCH = 64
 # allows 2e-2 there) over 64 x 80 x 298 positions; measured 2.0e-4 on the
 # H100 (PERF.md section 6)
 TRAIN_STEP_PARAM_ATOL = 1e-3
-# the CLI in a process of its own: launch counts zeroed just before main()
-# and read just after it
-_TRAIN_DRIVER = (
-    "import json, sys, torch\n"
+# a trainer CLI (the module named by the first argument) in a process of its
+# own: launch counts zeroed just before main() and read just after it
+_TRAIN_RUNNER = (
+    "import importlib, json, sys, torch\n"
     "from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk\n"
     "from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk\n"
-    "from speaker3d_tpu_torch.cli import train\n"
+    "cli = importlib.import_module(sys.argv[1])\n"
     "fk.fbank_features.launches = rk.res2_block.launches = 0\n"
-    "train.main(sys.argv[1:])\n"
+    "cli.main(sys.argv[2:])\n"
     "torch.cuda.synchronize()\n"
     "print('[train launches] ' + json.dumps({'k1': fk.fbank_features.launches,"
     " 'k2': rk.res2_block.launches, 'max_memory_allocated':"
@@ -1626,7 +1653,8 @@ def _train_cli(folder: str, csv: str, noise: str, rir: str) -> dict:
             argv.append(f"--batch_size={batch}")
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-c", _TRAIN_DRIVER] + argv, cwd=ROOT,
+            [sys.executable, "-c", _TRAIN_RUNNER,
+             "speaker3d_tpu_torch.cli.train"] + argv, cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
             text=True, timeout=900)
         wall = time.perf_counter() - t0
@@ -1830,6 +1858,414 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
     return {"k1": run["k1"], "k2": run["k2"], "extract_k1": k1,
             "extract_k2": k2, "stats": run}
 
+# the DNN front end: the VAD and segmenter trainers on their configs at full
+# width (cut: synthetic windows per epoch and epochs, against the configs'
+# 20,000 x 10), on a seeded corpus of the conversation's three voices, then
+# the diarization CLI with the 17.8M model and both experiments
+DNN_CONFIGS = {"vad": os.path.join("configs", "fsmn_vad.yaml"),
+               "seg": os.path.join("configs", "fsmn_seg.yaml")}
+DNN_CLIS = {"vad": "speaker3d_tpu_torch.cli.train_vad",
+            "seg": "speaker3d_tpu_torch.cli.train_segmentation"}
+DNN_CUTS = {"vad": {"dataset_size": 6400, "num_epoch": 3},
+            "seg": {"dataset_size": 3200, "num_epoch": 3}}
+DNN_UTTS = 8                      # utterances per voice
+# K1 against the plain fbank, one Adam step: parameters to 1e-3 (the first
+# step moves each by about lr = min_lr = 1e-5), loss to rtol 1e-3
+DNN_STEP_PARAM_ATOL = 1e-3
+# the VAD must flag between these shares of the conversation's frames
+DNN_VAD_SHARE = (0.20, 0.98)
+_EPOCH_LINE = (r"epoch (\d+): (\d+) steps of (\d+), step ([\d.]+) ms \(median; "
+               r"the first ([\d.]+)\), ([\d.]+) samples/s, data_wait_s ([\d.]+)"
+               r" of ([\d.]+) s")
+
+
+def dnn_corpus(folder: str, seed: int = 400) -> str:
+    """An ``ID,wav,spk`` CSV of the conversation's three voices: DNN_UTTS
+    utterances each of 2-4 s, with a 1-4 Hz amplitude modulation (as
+    tests/test_fsmn_vad.py's speech stand-in) and a little noise."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(folder, "wav"))
+    csv = os.path.join(folder, "train.csv")
+    with open(csv, "w") as f:
+        f.write("ID,wav,spk\n")
+        for i in range(DNN_UTTS * len(CONVERSATION_VOICES)):
+            spk = i % len(CONVERSATION_VOICES)
+            f0, amps = CONVERSATION_VOICES[spk]
+            t = np.arange(int(rng.uniform(2.0, 4.0) * FS)) / FS
+            f0 = f0 * rng.uniform(0.95, 1.05) * (
+                1 + 0.03 * np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / FS
+            sig = sum(a * np.sin((k + 1) * phase) for k, a in enumerate(amps))
+            am = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)
+            wav = 0.25 * am * sig + 0.003 * rng.standard_normal(len(t))
+            path = os.path.join(folder, "wav", f"d{i}.wav")
+            write_wav(path, wav.astype(np.float32), FS)
+            f.write(f"d{i},{path},voice{spk}\n")
+    return csv
+
+
+def _dnn_train(folder: str, csv: str) -> dict:
+    """Both trainer CLIs, each in a process of its own, run side by side on
+    the card; each config as it is but for the paths and the cuts."""
+    procs, argvs = {}, {}
+    for kind in ("vad", "seg"):
+        exp = os.path.join(folder, f"exp_{kind}")
+        cuts = [f"--{k}={v}" for k, v in DNN_CUTS[kind].items()]
+        argvs[kind] = (["--config", DNN_CONFIGS[kind], f"--exp_dir={exp}",
+                        f"--speech={csv}"] + cuts)
+        log(f"[dnn train {kind}] {DNN_CONFIGS[kind]} as it is (full width); "
+            f"overrides: --exp_dir, --speech (paths), cut: "
+            f"{' '.join(cuts)} (the config: dataset_size 20000, num_epoch "
+            f"10)")
+        procs[kind] = (subprocess.Popen(
+            [sys.executable, "-c", _TRAIN_RUNNER, DNN_CLIS[kind]]
+            + argvs[kind], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter(), exp)
+    runs = {}
+    try:
+        for kind, (proc, t0, exp) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{DNN_CLIS[kind]} failed (rc "
+                                     f"{proc.returncode}):\n{out[-3000:]}\n"
+                                     f"{err[-3000:]}")
+            epochs = re.findall(_EPOCH_LINE, out)
+            counts = re.search(r"\[train launches\] (\{.*\})", out)
+            if not epochs or counts is None:
+                raise AssertionError(f"{DNN_CLIS[kind]} printed no epoch "
+                                     f"summary:\n{out[-3000:]}")
+            counts = json.loads(counts.group(1))
+            steps = sum(int(e[1]) for e in epochs)
+            with open(os.path.join(exp, "train_epoch.log")) as f:
+                last = f.read().strip().splitlines()[-1]
+            last_e = epochs[-1]
+            runs[kind] = {
+                "exp": exp, "epochs": len(epochs), "steps": steps,
+                "batch": int(last_e[2]),
+                "step_ms_median_last_epoch": float(last_e[3]),
+                "first_step_ms": float(epochs[0][4]),
+                "samples_per_s_last_epoch": float(last_e[5]),
+                "data_wait_share": (sum(float(e[6]) for e in epochs)
+                                    / sum(float(e[7]) for e in epochs)),
+                "max_memory_allocated_gib": counts["max_memory_allocated"]
+                / 2**30,
+                "k1": counts["k1"], "k2": counts["k2"],
+                "avg_loss": float(re.search(r"avg_loss: ([-\d.e]+)",
+                                            last).group(1)),
+                "avg_acc": float(re.search(r"avg_acc: ([-\d.e]+)",
+                                           last).group(1)),
+                "process_wall_s": wall}
+            if counts["k1"] != steps or counts["k2"] != 0:
+                raise AssertionError(f"{DNN_CLIS[kind]}: launches K1 "
+                                     f"{counts['k1']} K2 {counts['k2']} in "
+                                     f"{steps} steps; want K1 once a step")
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return runs
+
+
+def _dnn_step_checks(csv: str) -> dict:
+    """One step of each trainer at its config's width and batch, from the
+    same weights and batch, through K1 against the plain fbank."""
+    import copy
+
+    import torch
+
+    from speaker3d_tpu_torch.data.dataset import BatchLoader
+    from speaker3d_tpu_torch.data.dataset_seg import SyntheticSegmentationDataset
+    from speaker3d_tpu_torch.data.dataset_vad import SyntheticVadDataset
+    from speaker3d_tpu_torch.models.fsmn_vad import FSMNVad, lecun_init_
+    from speaker3d_tpu_torch.models.segmentation import FSMNSegmenter
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.train import seg_train, vad_train
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    fb = KaldiFbank(FbankConfig(), mean_norm=False, device="cuda")
+
+    def plain_fbank(wav):
+        return fk.fbank_plain(wav, fb._B, fb._mel,
+                              frame_length=fb.cfg.frame_length,
+                              frame_shift=fb.cfg.frame_shift)
+
+    out = {}
+    for kind in ("vad", "seg"):
+        config = build_config(os.path.join(ROOT, DNN_CONFIGS[kind]))
+        margs = dict(config["model"]["args"])
+        if kind == "vad":
+            dataset = SyntheticVadDataset(csv, window_dur=config["window_dur"],
+                                          seed=3, size=config["batch_size"])
+            base = FSMNVad(**margs)
+            make = vad_train.make_vad_train_step
+        else:
+            dataset = SyntheticSegmentationDataset(
+                csv, window_dur=config["window_dur"],
+                max_speakers=config["max_speakers"], seed=3,
+                size=config["batch_size"])
+            base = FSMNSegmenter(max_speakers=config["max_speakers"], **margs)
+            make = seg_train.make_seg_train_step
+        lecun_init_(base, torch.Generator().manual_seed(5))
+        (batch,) = list(BatchLoader(dataset, config["batch_size"],
+                                    shuffle=False, num_workers=4))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        cfg = vad_train.VadTrainConfig(step_per_epoch=10)
+        results = []
+        for feature_fn in (fb, plain_fbank):
+            state = vad_train.init_adam_train_state(copy.deepcopy(base),
+                                                    "cuda")
+            launches = fk.fbank_features.launches
+            metrics = make(cfg, feature_fn=feature_fn)(state, batch)
+            torch.cuda.synchronize()
+            results.append((float(metrics["loss"]), state.model.state_dict(),
+                            fk.fbank_features.launches - launches))
+        (k1_loss, k1_sd, k1_n), (pl_loss, pl_sd, pl_n) = results
+        if (k1_n, pl_n) != (1, 0):
+            raise AssertionError(f"dnn {kind} step launches K1 "
+                                 f"{(k1_n, pl_n)}; want 1 and 0")
+        out[kind] = {
+            "batch": list(batch["wavs"].shape),
+            "loss": k1_loss,
+            "k1_vs_plain_loss_rel": abs(k1_loss - pl_loss) / abs(pl_loss),
+            "k1_vs_plain_param_max_abs": max(
+                float((k1_sd[k] - pl_sd[k]).abs().max()) for k in k1_sd)}
+        if not (np.isfinite(k1_loss)
+                and out[kind]["k1_vs_plain_loss_rel"] <= 1e-3
+                and out[kind]["k1_vs_plain_param_max_abs"]
+                <= DNN_STEP_PARAM_ATOL):
+            raise AssertionError(f"dnn {kind} step through K1 vs the plain "
+                                 f"fbank: {out[kind]}")
+    return out
+
+
+def _dnn_held(vad_exp: str, seg_exp: str, wav: np.ndarray) -> dict:
+    """DnnVAD and DnnSegmenter probabilities on the conversation through K1
+    against the plain fbank on the card; flags (and activations binarized
+    at 0.5) that flip lie within the probabilities' difference of the
+    threshold."""
+    from speaker3d_tpu_torch.diar.dnn_seg import load_segmentation_exp
+    from speaker3d_tpu_torch.diar.dnn_vad import load_vad_exp
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+
+    out = {}
+    for kind, front in (("vad", load_vad_exp(vad_exp, device="cuda")),
+                        ("seg", load_segmentation_exp(seg_exp,
+                                                      device="cuda"))):
+        probs = (lambda: front.frame_probs(wav)[0]) if kind == "vad" else (
+            lambda: front(wav).data)
+        thr = front.threshold if kind == "vad" else 0.5
+        got = probs()
+        fb = front.fbank
+        front.fbank = lambda w: fk.fbank_plain(
+            w, fb._B, fb._mel, frame_length=fb.cfg.frame_length,
+            frame_shift=fb.cfg.frame_shift)
+        want = probs()
+        front.fbank = fb
+        diff = float(np.abs(got - want).max())
+        flips = (got > thr) != (want > thr)
+        margin = float(np.abs(got[flips] - thr).max()) if flips.any() else 0.0
+        out[kind] = {"max_abs_diff": diff, "flipped": int(flips.sum()),
+                     "of": int(got.size), "flipped_max_margin": margin}
+        if not np.isfinite(got).all() or margin > diff:
+            raise AssertionError(f"dnn {kind} through K1 vs plain: {out[kind]}")
+    return out
+
+
+def phase_dnn_front(work: str, models: str, smi: str) -> dict:
+    """Train a VAD and a segmenter at their configs' width, then diarize
+    the 120 s conversation with both (the file listed twice: the second call
+    is warm) and the 17.8M model, ending in RTTM."""
+    import torch
+
+    from speaker3d_tpu_torch.cli import infer_diarization
+    from speaker3d_tpu_torch.diar.dnn_seg import DnnSegmenter
+    from speaker3d_tpu_torch.diar.dnn_vad import DnnVAD
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.utils.config import build_config
+    from speaker3d_tpu_torch.utils.fileio import load_audio
+
+    folder = os.path.join(work, "dnn")
+    t0 = time.perf_counter()
+    csv = dnn_corpus(folder)
+    runs = _dnn_train(folder, csv)
+    for kind, r in runs.items():
+        log(f"[dnn train {kind}] {smi}: {r['epochs']} epochs, {r['steps']} "
+            f"steps of {r['batch']}: step {r['step_ms_median_last_epoch']:.2f} "
+            f"ms (median of the last epoch, CUDA events; the first "
+            f"{r['first_step_ms']:.1f}), {r['samples_per_s_last_epoch']:.1f} "
+            f"samples/s, data wait {r['data_wait_share']:.1%} of the epochs, "
+            f"max_memory_allocated {r['max_memory_allocated_gib']:.3f} GiB; "
+            f"launches K1 {r['k1']} K2 {r['k2']}; last epoch avg_loss "
+            f"{r['avg_loss']:.4f} avg_acc {r['avg_acc']:.4f}; the process "
+            f"{r['process_wall_s']:.1f} s")
+    log(f"[dnn train] both processes side by side, "
+        f"{time.perf_counter() - t0:.1f} s with the corpus")
+    checks = _dnn_step_checks(csv)
+    for kind, c in checks.items():
+        log(f"[dnn train step {kind} {c['batch']}] through K1 vs the plain "
+            f"fbank: loss {c['loss']:.5f} rel {c['k1_vs_plain_loss_rel']:.3g} "
+            f"(<= 1e-3), parameters max abs "
+            f"{c['k1_vs_plain_param_max_abs']:.3g} (<= "
+            f"{DNN_STEP_PARAM_ATOL:g})")
+
+    # the main path: the CLI with both experiments, per file the VAD's and
+    # the segmenter's K1 launches, the embed batches and the stage times.
+    # Spectral at the oracle count with no centroid merge, as in
+    # phase_diar_cluster, so that the overlap post-processing aligns three
+    # clusters: AHC takes no count, and random weights put every chunk above
+    # its cosine threshold (one cluster)
+    wav_path = os.path.join(work, "conv3.wav")
+    wav = load_audio(wav_path)[0]
+    files, embed_batches, shapes = [], [], {}
+    calls = {"call": DiarizationPipeline.__call__,
+             "emb": DiarizationPipeline.do_emb_extraction,
+             "cluster": DiarizationPipeline.do_clustering,
+             "vad": DnnVAD.__call__, "seg": DnnSegmenter.__call__}
+
+    def front(kind):
+        def run(self, x, *a, **kw):
+            # the batches the wrapper's geometry gives this input
+            n = len(x)
+            if kind == "vad":
+                t = 1 + (n - self.frame_length) // self.frame_shift
+                windows = -(-t // self.chunk)
+            else:
+                windows = max(1, 1 + -(-max(n - self.win_samples, 0)
+                                       // self.step_samples))
+            before = fk.fbank_features.launches
+            out = calls[kind](self, x, *a, **kw)
+            files[-1][f"{kind}_k1"] = fk.fbank_features.launches - before
+            files[-1][f"{kind}_batches"] = -(-windows // self.batch)
+            shapes[kind] = (self.batch, self.win_samples)
+            if kind == "vad":
+                files[-1]["vad_share"] = float(np.mean(out[0]))
+            return out
+        return run
+
+    def call(self, *a, **kw):
+        files.append({})
+        out = calls["call"](self, *a, **kw)
+        files[-1]["stages"] = dict(self.last_stage_times)
+        return out
+
+    def emb(self, chunks, wav_1d):
+        embed_batches.append(-(-len(chunks) // self.batch_size))
+        files[-1]["chunks"] = len(chunks)
+        return calls["emb"](self, chunks, wav_1d)
+
+    def cluster(self, *a, **kw):
+        # seconds per cluster before the overlap post-processing
+        spk_num, fields = calls["cluster"](self, *a, **kw)
+        secs = {}
+        for st, ed, c in fields:
+            secs[c] = secs.get(c, 0.0) + ed - st
+        files[-1]["cluster_seconds"] = {c: round(v, 3) for c, v in
+                                        sorted(secs.items())}
+        return spk_num, fields
+
+    out_dir = os.path.join(folder, "diar")
+    DiarizationPipeline.__call__, DiarizationPipeline.do_emb_extraction = \
+        call, emb
+    DiarizationPipeline.do_clustering = cluster
+    DnnVAD.__call__, DnnSegmenter.__call__ = front("vad"), front("seg")
+    try:
+        t0 = time.perf_counter()
+        k1, k2 = _counted(lambda: infer_diarization.main(
+            ["--wav", wav_path, wav_path, "--out_dir", out_dir,
+             "--model_id", MODEL_17M, "--local_model_dir", models,
+             "--vad_exp_dir", runs["vad"]["exp"], "--include_overlap",
+             "--segmentation_exp_dir", runs["seg"]["exp"],
+             "--cluster_type", "spectral", "--cluster_seed", "0"]
+            + DIAR_CLUSTER_FLAGS))
+        wall = time.perf_counter() - t0
+    finally:
+        DiarizationPipeline.__call__ = calls["call"]
+        DiarizationPipeline.do_emb_extraction = calls["emb"]
+        DiarizationPipeline.do_clustering = calls["cluster"]
+        DnnVAD.__call__, DnnSegmenter.__call__ = calls["vad"], calls["seg"]
+    # the 120 s file: the VAD's 512-frame chunks with 80 frames of context
+    # on each side, 4 a batch (24 chunks, 6 batches); the segmenter's 5 s
+    # windows every 0.5 s, 8 a batch (231 windows, 29 batches)
+    vad_batches, seg_batches = files[0]["vad_batches"], files[0]["seg_batches"]
+    with open(os.path.join(out_dir, "conv3.rttm")) as f:
+        lines = f.read().splitlines()
+    speakers = sorted({line.split()[7] for line in lines})
+    stats = {"files": files, "k1": k1, "k2": k2, "cli_wall_s": wall,
+             "vad_batches": vad_batches, "seg_batches": seg_batches,
+             "segments": len(lines), "speakers": speakers}
+    embed = sum(embed_batches)
+    log(f"[dnn diarization] {smi}: launches K1 {k1} K2 {k2}; per file: "
+        + "; ".join(f"VAD {f.get('vad_k1')} (flags {f.get('vad_share', 0):.1%}"
+                    f" speech), segmenter {f.get('seg_k1')}, {f.get('chunks')}"
+                    f" chunks, seconds per cluster before the overlap "
+                    f"post-processing {f.get('cluster_seconds')}, stages "
+                    f"{json.dumps({k: round(v, 4) for k, v in f['stages'].items()})}"
+                    for f in files)
+        + f"; RTTM {len(lines)} segments, speakers {speakers}; CLI "
+        f"{wall:.2f} s")
+    if not (len(files) == 2 and embed > 0
+            and all(f["vad_k1"] == vad_batches and f["seg_k1"] == seg_batches
+                    for f in files)
+            and k1 == 2 * (vad_batches + seg_batches) + embed
+            and k2 == 7 * embed):
+        raise AssertionError(f"dnn diarization: launches K1 {k1} K2 {k2}, "
+                             f"embed batches {embed_batches}, per file "
+                             f"{files}; want VAD {vad_batches} and segmenter "
+                             f"{seg_batches} per file, K2 7 x the embed K1")
+    lo, hi = DNN_VAD_SHARE
+    if not all(lo <= f["vad_share"] <= hi for f in files):
+        raise AssertionError(f"dnn VAD flagged {[f['vad_share'] for f in files]}"
+                             f" of the conversation; want {lo}-{hi}")
+    if not all({"segmentation", "overlap_post"} <= set(f["stages"])
+               for f in files) or not lines:
+        raise AssertionError(f"dnn diarization: stages {files} or an empty "
+                             f"RTTM")
+    held = _dnn_held(runs["vad"]["exp"], runs["seg"]["exp"], wav)
+    for kind, h in held.items():
+        log(f"[dnn {kind} through K1 vs plain] max abs difference "
+            f"{h['max_abs_diff']:.3g}; {h['flipped']} of {h['of']} flipped "
+            f"at the threshold (the furthest {h['flipped_max_margin']:.3g} "
+            f"from it)")
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k2": k2, "train_k1": sum(r["k1"] for r in runs.values()),
+            "train": {k: {kk: vv for kk, vv in v.items() if kk != "exp"}
+                      for k, v in runs.items()},
+            "step_checks": checks, "held": held, "stats": stats,
+            # K1's shapes on this path: [batch, samples] of the two front
+            # ends and of the two trainers' steps
+            "k1_shapes": [shapes["vad"], shapes["seg"]] + [
+                (r["batch"], int(build_config(os.path.join(
+                    ROOT, DNN_CONFIGS[k]))["window_dur"] * FS))
+                for k, r in runs.items()]}
+
+
+def dnn_front_k1_share(k1: dict, dnn: dict) -> None:
+    """K1's time in the DNN front end's stages of the warm file: the
+    launches at each front end's shape times K1's ms there, against the
+    stage's wall."""
+    vad_shape, seg_shape = dnn["k1_shapes"][:2]
+    ms = {(r["B"], r["L"]): r["ms"] for r in k1["shapes"]
+          if r["rate"] == FS and r["mels"] == 80}
+    warm = dnn["stats"]["files"][-1]
+    share = {}
+    for kind, stage, shape in (("vad", "vad", vad_shape),
+                               ("seg", "segmentation", seg_shape)):
+        k1_s = warm[f"{kind}_k1"] * ms[tuple(shape)] / 1e3
+        share[kind] = {"k1_s": k1_s, "stage_s": warm["stages"][stage],
+                       "share": k1_s / warm["stages"][stage]}
+        log(f"[dnn {kind} K1 share] {warm[f'{kind}_k1']} launches x "
+            f"{ms[tuple(shape)]:.4f} ms = {k1_s * 1e3:.3f} ms of the warm "
+            f"'{stage}' stage's {warm['stages'][stage] * 1e3:.3f} ms "
+            f"({share[kind]['share']:.1%})")
+    dnn["k1_share"] = share
+
 
 def main() -> int:
     sys.path.insert(0, ROOT)
@@ -1843,8 +2279,11 @@ def main() -> int:
         diar_cluster = phase_diar_cluster(work, pipe["models"], device["smi"])
         analysis = phase_analysis(work, pipe["models"], sv)
         train = phase_train(work, sv, device["smi"])
+        dnn = phase_dnn_front(work, pipe["models"], device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
-    k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"])
+    k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
+                  dnn["k1_shapes"])
+    dnn_front_k1_share(k1, dnn)
     k2 = phase_k2(lengths, pipe["main_len"])
     k3 = phase_k3()
     phase_nnchain()
@@ -1857,7 +2296,10 @@ def main() -> int:
                                  "diarization_clustering": diar_cluster[key],
                                  "analysis": analysis[key],
                                  "train": train[key],
-                                 "train_extract": train[f"extract_{key}"]}
+                                 "train_extract": train[f"extract_{key}"],
+                                 "dnn_front": dnn[key],
+                                 "dnn_train": dnn["train_k1"] if key == "k1"
+                                 else 0}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -1867,7 +2309,9 @@ def main() -> int:
                         if k not in ("k1", "k2")},
                     "analysis": analysis["stats"], "cluster": cluster,
                     "train": {k: v for k, v in train["stats"].items()
-                              if k != "exp"}}))
+                              if k != "exp"},
+                    "dnn_front": {k: v for k, v in dnn.items()
+                                  if k not in ("k1", "k2", "train_k1")}}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

@@ -16,9 +16,13 @@ Clustering: AHC (default), spectral (the upstream recipe's; float64 on the
 host, or its affinity, Laplacian and eigenpairs on ``--device`` with
 ``--cluster_backend device``; ``--cluster_pval``, ``--cluster_seed``) or
 UMAP+HDBSCAN (the UMAP layout on ``--device``). ``--exp_dir`` (a trained
-experiment of either trainer) replaces ``--model_id``. Flags whose modules
-are not ported yet (--vad_exp_dir, --include_overlap) stop with a message
-naming their ROADMAP.md item.
+experiment of either trainer) replaces ``--model_id``.
+
+The DNN front end, each model an experiment of either package's trainer
+(``cli/train_vad.py``, ``cli/train_segmentation.py``), on ``--device``:
+``--vad_exp_dir`` replaces the energy VAD with a trained DFSMN VAD, and
+``--include_overlap --segmentation_exp_dir EXP`` adds overlap-aware
+post-processing driven by a trained FSMN segmenter.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ def get_args(argv=None):
     p.add_argument("--speaker_num", type=int, default=None)
     p.add_argument("--vad_threshold", type=float, default=0.5)
     p.add_argument("--vad_exp_dir", default=None,
-                   help="a trained DFSMN VAD experiment (not ported yet)")
+                   help="a trained DFSMN VAD experiment (cli/train_vad.py) "
+                        "instead of the energy VAD")
     p.add_argument("--vad_min_speech_ms", type=float, default=200.0,
                    help="drop speech segments shorter than this")
     p.add_argument("--vad_max_silence_ms", type=float, default=300.0,
@@ -59,9 +64,14 @@ def get_args(argv=None):
                    help="dynamic-threshold percentile for boundary "
                         "refinement")
     p.add_argument("--include_overlap", action="store_true",
-                   help="overlap-aware post-processing (not ported yet)")
-    p.add_argument("--segmentation_threshold", type=float, default=0.5)
-    p.add_argument("--segmentation_exp_dir", default=None)
+                   help="overlap-aware post-processing by a trained FSMN "
+                        "segmenter (--segmentation_exp_dir)")
+    p.add_argument("--segmentation_threshold", type=float, default=0.5,
+                   help="binarization threshold of the segmenter's "
+                        "per-speaker activations")
+    p.add_argument("--segmentation_exp_dir", default=None,
+                   help="cli/train_segmentation.py experiment (required "
+                        "with --include_overlap)")
     p.add_argument("--cluster_type", default="AHC",
                    choices=["AHC", "spectral", "umap_hdbscan"],
                    help="clustering: AHC, spectral (the upstream recipe's) "
@@ -103,18 +113,6 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    unported = []
-    if args.vad_exp_dir:
-        unported.append("--vad_exp_dir (diar/dnn_vad.py, ROADMAP.md M11b)")
-    if args.include_overlap:
-        unported.append("--include_overlap (diar/overlap.py, ROADMAP.md "
-                        "M11b)")
-    if unported:
-        raise SystemExit("not ported to the PyTorch package yet: "
-                         + "; ".join(unported))
-
-
 def collect_wavs(specs):
     wavs = []
     for spec in specs:
@@ -139,13 +137,27 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.fileio import write_wav
 
     args = get_args(argv)
-    _refuse_unported(args)
+    if args.include_overlap and not args.segmentation_exp_dir:
+        raise SystemExit("--include_overlap requires --segmentation_exp_dir "
+                         "(train one with cli/train_segmentation.py)")
     device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     if maybe_fanout("speaker3d_tpu_torch.cli.infer_diarization", argv,
                     args.nprocs):
         return
 
+    vad = None
+    if args.vad_exp_dir:
+        from speaker3d_tpu_torch.diar.dnn_vad import load_vad_exp
+
+        vad = load_vad_exp(args.vad_exp_dir, threshold=args.vad_threshold,
+                           device=device)
+    segmentation = None
+    if args.include_overlap:
+        from speaker3d_tpu_torch.diar.dnn_seg import load_segmentation_exp
+
+        segmentation = load_segmentation_exp(args.segmentation_exp_dir,
+                                             device=device)
     model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high")
     cluster = None
@@ -173,6 +185,7 @@ def main(argv=None):
             **kw)
     pipe = DiarizationPipeline(
         embed_fn,
+        vad=vad,
         cluster=cluster,
         vad_threshold=args.vad_threshold,
         vad_min_speech_ms=args.vad_min_speech_ms,
@@ -180,6 +193,8 @@ def main(argv=None):
         vad_energy_threshold=args.vad_energy_threshold,
         vad_boundary_expansion_ms=args.vad_boundary_expansion_ms,
         vad_boundary_energy_percentile=args.vad_boundary_energy_percentile,
+        segmentation_model=segmentation,
+        segmentation_threshold=args.segmentation_threshold,
         cluster_mer_cos=args.cluster_mer_cos,
         cluster_fix_cos_thr=args.cluster_fix_cos_thr,
         cluster_min_cluster_size=args.cluster_min_cluster_size,

@@ -107,6 +107,26 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
 
 
+def print_epoch_summary(epoch: int, clock: _StepClock, timed: _TimedIter,
+                        batch_size: int, wall_s: float,
+                        device: torch.device) -> None:
+    """The epoch's ``epoch N: ...`` line: steps, the median step interval
+    and the first, samples/s, the data wait against the epoch's wall, and
+    on the card the peak memory."""
+    intervals = clock.ms()
+    if not intervals:
+        return
+    step_ms = sorted(intervals)
+    med = step_ms[len(step_ms) // 2]
+    peak = (f", peak memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "")
+    print(f"epoch {epoch}: {len(step_ms)} steps of {batch_size}, "
+          f"step {med:.1f} ms (median; the first {intervals[0]:.1f}), "
+          f"{batch_size / med * 1e3:.1f} samples/s, "
+          f"data_wait_s {timed.wait:.2f} of {wall_s:.2f} s{peak}", flush=True)
+
+
 def build_model(config, seed: int) -> torch.nn.Module:
     """The config's model, its initial weights drawn from torch's CPU
     generator seeded with ``seed`` (the global generator left as it was)."""
@@ -239,17 +259,8 @@ def main(argv=None):
              "data_wait_s": round(timed.wait, 1)},
             {"avg_loss": fetch_mean(losses) if losses else None,
              "avg_acc": fetch_mean(accs) if accs else None})
-        intervals = clock.ms()
-        if intervals:
-            step_ms = sorted(intervals)
-            med = step_ms[len(step_ms) // 2]
-            peak = (f", peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
-                    if device.type == "cuda" else "")
-            print(f"epoch {epoch}: {len(step_ms)} steps of {loader.batch_size}, "
-                  f"step {med:.1f} ms (median; the first {intervals[0]:.1f}), "
-                  f"{loader.batch_size / med * 1e3:.1f} samples/s, "
-                  f"data_wait_s {timed.wait:.2f} of {time.time() - t0:.2f} s"
-                  f"{peak}", flush=True)
+        print_epoch_summary(epoch, clock, timed, loader.batch_size,
+                            time.time() - t0, device)
         checkpointer.save_checkpoint(epoch, {"train_state": state_tree(state)})
     tracer.close()
     shutdown.finalize(preempted)

@@ -17,6 +17,11 @@ given the port module's state_dict as ``like``, a leaf of the same size is
 reshaped to the module's shape, [O, I] -> [O, I, 1]. A raw ``weight``
 parameter (``CosineClassifier``) is already in torch layout and is copied
 as it is.
+
+``flax_from_state_dict`` is the inverse for modules whose layer lists are
+Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter): the
+port's trainers write their checkpoints in the JAX trainers' layout with
+it.
 """
 
 from __future__ import annotations
@@ -80,6 +85,52 @@ def state_dict_from_flax(variables: Mapping[str, Any],
             if tleaf == "running_mean":
                 out[key[:-len("running_mean")] + "num_batches_tracked"] = (
                     torch.tensor(0, dtype=torch.long))
+    return out
+
+
+def _flax_module_path(parts):
+    """['fsmn', '0', 'proj'] -> ['fsmn.0', 'proj']: an index joins the name
+    before it, as in the Flax submodule name ``fsmn.0``."""
+    out = []
+    for p in parts:
+        if p.isdigit() and out:
+            out[-1] = f"{out[-1]}.{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def flax_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """A state_dict -> ``{'params'[, 'batch_stats']}`` as nested dicts of
+    numpy arrays, the inverse of ``state_dict_from_flax``: a ``weight`` of
+    1 dimension is a norm's ``scale``, of 2 a Dense kernel [I, O], of 3 a
+    Conv kernel [k, I, O] and of 4 an HWIO kernel; ``running_mean`` and
+    ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
+    dropped."""
+    out: dict = {}
+    for key, val in state_dict.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        t = np.array(val.detach().cpu() if isinstance(val, torch.Tensor)
+                     else val)
+        coll = "params"
+        if leaf == "weight":
+            if t.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                # OIHW -> HWIO; OI -> IO and OIW -> WIO
+                t = (t.transpose(2, 3, 1, 0) if t.ndim == 4
+                     else t.transpose(tuple(range(t.ndim))[::-1]))
+        elif leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf != "bias":
+            raise KeyError(f"no flax mapping for torch leaf {key}")
+        node = out.setdefault(coll, {})
+        for m in _flax_module_path(mods):
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(t)
     return out
 
 

@@ -5,6 +5,10 @@ The counterpart of ``speaker3d_tpu/diar/pipeline.py``: VAD -> post-processing
 interval -> batched embedding extraction on the device -> AHC clustering
 (mer_cos .3 / fix_cos_thr .3) -> compressed segment list -> RTTM/JSON plus
 diagnostic sidecars (.meta.json RTF, .pairs.json cosines, .vad_info.json).
+With a ``segmentation_model`` (``diar/dnn_seg.py``), the intervals where
+it counts a speaker join the VAD's, and the clusters' segments are refined
+by its per-frame speaker counts (``diar/overlap.py``), so two speakers may
+overlap.
 
 Device notes:
 - Each file's waveform is uploaded once (int16 when every sample is exactly
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from speaker3d_tpu_torch.diar import overlap
 from speaker3d_tpu_torch.diar import vad as vad_mod
 from speaker3d_tpu_torch.diar.cluster import CommonClustering, cosine_affinity
 from speaker3d_tpu_torch.utils.fileio import load_audio
@@ -133,6 +138,8 @@ class DiarizationPipeline:
                  chunk_dur: float = 1.5,
                  chunk_step: float = 0.75,
                  batch_size: int = 64,
+                 segmentation_model: Optional[Callable] = None,
+                 segmentation_threshold: float = 0.5,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         self.embed_fn = embed_fn
@@ -149,8 +156,11 @@ class DiarizationPipeline:
         self.chunk_dur = chunk_dur
         self.chunk_step = chunk_step
         self.batch_size = batch_size
+        self.segmentation_model = segmentation_model
+        self.segmentation_threshold = segmentation_threshold
 
-        # TenVad/EnergyVAD emit 16 ms-hop flags
+        # TenVad/EnergyVAD emit 16 ms-hop flags; a DnnVAD advertises its
+        # 10 ms fbank hop as `.frame_ms`
         self.vad_frame_size_ms = float(getattr(self.vad_model, "frame_ms", 16.0))
         self.vad_min_speech_ms = vad_min_speech_ms
         self.vad_max_silence_ms = vad_max_silence_ms
@@ -176,7 +186,7 @@ class DiarizationPipeline:
         self._resident = None  # (wav_1d, device tensor) of the last upload
         self.last_pad_len = None  # L of the last do_emb_extraction call
         # wall-clock per stage of the last call: upload, vad, vad_post,
-        # embed, cluster
+        # [segmentation,] embed, cluster[, overlap_post]
         self.last_stage_times = {}
 
     @property
@@ -286,6 +296,15 @@ class DiarizationPipeline:
         self.last_vad_refined_mask = refined_mask
         stages["vad_post"] = time.time() - t
 
+        if self.segmentation_model is not None:
+            t = time.time()
+            segmentations, count = overlap.run_segmentation(
+                self.segmentation_model, wav_1d, self.fs,
+                threshold=self.segmentation_threshold)
+            vad_time = vad_mod.merge_vad(vad_time,
+                                         overlap.get_valid_field(count))
+            stages["segmentation"] = time.time() - t
+
         if self.no_chunk_after_vad:
             chunks = [[st, ed] for st, ed in vad_time]
         else:
@@ -309,8 +328,16 @@ class DiarizationPipeline:
         stages["embed"] = time.time() - t
 
         t = time.time()
-        _, fields = self.do_clustering(chunks, embeddings, speaker_num)
+        spk_num, fields = self.do_clustering(chunks, embeddings, speaker_num)
         stages["cluster"] = time.time() - t
+
+        if self.segmentation_model is not None:
+            t = time.time()
+            binary, timestamps = overlap.post_process(
+                fields, spk_num, segmentations, count,
+                threshold=self.segmentation_threshold)
+            fields = overlap.binary_to_segs(binary, timestamps)
+            stages["overlap_post"] = time.time() - t
 
         self.output_field_labels = fields
         self.last_elapsed = time.time() - t0

@@ -1,0 +1,165 @@
+"""VAD training: the train step on one card (Adam + frame BCE).
+
+The counterpart of ``speaker3d_tpu/train/vad_train.py``. Per step: the Kaldi
+fbank with no mean-norm (``feature_fn``; on a card the fbank kernel, whose
+input, the waveform, needs no gradient), the LR schedule at the step
+counter, the model, the stable BCE with logits averaged over frames and
+summed over the batch / B, the JAX trainer's frame accuracy, and Adam with
+L2 added to the gradient, written out as the JAX step writes it:
+
+    g += wd * p;  m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+    p -= lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
+
+with t the step after the increment and the bias corrections in float32
+(``torch.optim.Adam`` puts eps after its own bias correction of sqrt(v) and
+decays otherwise). The step runs in fp32 (TF32 off).
+
+The state holds the model, the Adam moments by parameter name and the step;
+``state_tree`` / ``load_state_tree`` carry it as the JAX trainer's
+checkpoint tree (the Flax ``params``, ``adam_m``, ``adam_v``, ``step``), so
+either package reads the other's experiments. ``seg_train.py`` shares all
+of it but the loss.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from speaker3d_tpu_torch.compat.flax_convert import (
+    flax_from_state_dict, state_dict_from_flax)
+from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from speaker3d_tpu_torch.eval.embedding import matmul_precision
+from speaker3d_tpu_torch.models.segmentation import bce_with_logits
+from speaker3d_tpu_torch.train.schedulers import warmup_cosine_lr
+
+
+class VadTrainConfig(NamedTuple):
+    min_lr: float = 1e-5
+    max_lr: float = 1e-3
+    warmup_epoch: int = 1
+    fix_epoch: int = 10
+    step_per_epoch: int = 1000
+    weight_decay: float = 1e-5
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+
+
+class AdamTrainState:
+    """The model, Adam's first and second moments by parameter name, the
+    step."""
+
+    def __init__(self, model: torch.nn.Module, adam_m: Dict, adam_v: Dict,
+                 step: int = 0):
+        self.model = model
+        self.adam_m = adam_m
+        self.adam_v = adam_v
+        self.step = step
+
+
+def init_adam_train_state(model: torch.nn.Module,
+                          device=DEFAULT_DEVICE) -> AdamTrainState:
+    """``model`` (already initialised) moved to ``device``, zero moments,
+    step 0."""
+    model.to(resolve_device(device))
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    return AdamTrainState(model, zeros,
+                          {n: torch.zeros_like(p) for n, p in zeros.items()})
+
+
+def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
+                         feature_fn: Optional[Callable] = None) -> Callable:
+    """``step(state, batch) -> {'loss', 'acc', 'lr'}``: one Adam step on
+    ``state`` in place. ``loss_fn(logits, labels) -> (loss, acc)``.
+
+    ``batch``: ``{'wavs': [B, L] float32, 'labels'}`` on the state's device
+    when ``feature_fn`` is given, else ``{'feats': [B, T, F], 'labels'}``.
+    ``loss`` and ``acc`` are 0-d tensors on the device (no host sync),
+    ``lr`` a 0-d float32 CPU tensor."""
+    batch_key = "wavs" if feature_fn is not None else "feats"
+    b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+
+    def step(state: AdamTrainState, batch) -> Dict[str, torch.Tensor]:
+        lr = warmup_cosine_lr(
+            state.step, min_lr=cfg.min_lr, max_lr=cfg.max_lr,
+            warmup_epoch=cfg.warmup_epoch, fix_epoch=cfg.fix_epoch,
+            step_per_epoch=cfg.step_per_epoch)
+        # the bias corrections of step t, in float32 as the JAX step's
+        t = np.float32(state.step + 1)
+        bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        with matmul_precision("float32"):
+            x = batch[batch_key]
+            labels = batch["labels"].to(torch.float32)
+            if feature_fn is not None:
+                x = feature_fn(x)
+            state.model.train()
+            names, params = zip(*state.model.named_parameters())
+            loss, acc = loss_fn(state.model(x), labels)
+            params = list(params)
+            grads = list(torch.autograd.grad(loss, params))
+            with torch.no_grad():
+                m = [state.adam_m[n] for n in names]
+                v = [state.adam_v[n] for n in names]
+                g = torch._foreach_add(grads, params, alpha=wd)
+                torch._foreach_mul_(m, b1)
+                torch._foreach_add_(m, g, alpha=1 - b1)
+                torch._foreach_mul_(v, b2)
+                torch._foreach_addcmul_(v, g, g, value=1 - b2)
+                denom = torch._foreach_div(v, bc2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, eps)
+                upd = torch._foreach_div(m, bc1)
+                torch._foreach_div_(upd, denom)
+                torch._foreach_add_(params, upd, alpha=-float(lr))
+        state.step += 1
+        return {"loss": loss.detach(), "acc": acc, "lr": lr}
+
+    return step
+
+
+def vad_loss(logits, labels):
+    """(mean over frames, summed over the batch / B, of the frame BCE; the
+    frame accuracy likewise)."""
+    b = logits.shape[0]
+    loss = bce_with_logits(logits, labels).mean(dim=-1).sum() / b
+    with torch.no_grad():
+        acc = ((logits > 0) == (labels > 0.5)).to(torch.float32).mean(
+            dim=-1).sum() / b
+    return loss, acc
+
+
+def make_vad_train_step(cfg: VadTrainConfig,
+                        feature_fn: Optional[Callable] = None) -> Callable:
+    """Batches: ``{'wavs' | 'feats', 'labels': [B, T] per-frame speech
+    targets}``."""
+    return make_adam_train_step(vad_loss, cfg, feature_fn)
+
+
+def state_tree(state: AdamTrainState) -> Dict:
+    """The JAX trainer's checkpoint tree of ``state`` (numpy arrays)."""
+    return {"params": flax_from_state_dict(
+                state.model.state_dict())["params"],
+            "adam_m": flax_from_state_dict(state.adam_m)["params"],
+            "adam_v": flax_from_state_dict(state.adam_v)["params"],
+            "step": np.asarray(state.step, np.int32)}
+
+
+def load_state_tree(state: AdamTrainState, tree: Dict) -> None:
+    """Load a checkpoint tree of either package's trainer into ``state``."""
+    like = state.model.state_dict()
+    state.model.load_state_dict(
+        state_dict_from_flax({"params": tree["params"]}, like=like),
+        strict=True)
+    with torch.no_grad():
+        for key, moments in (("adam_m", state.adam_m),
+                             ("adam_v", state.adam_v)):
+            sd = state_dict_from_flax({"params": tree[key]}, like=like)
+            if sorted(sd) != sorted(moments):
+                raise KeyError(f"{key} does not match the model's parameters")
+            for name, buf in moments.items():
+                buf.copy_(sd[name])
+    state.step = int(np.asarray(tree["step"]))

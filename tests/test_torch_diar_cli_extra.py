@@ -130,14 +130,24 @@ def test_cli_segments_equal_jax(setup, small_registry, extra, speakers):
 
 
 def test_cli_still_refuses_unported_flags(tmp_path):
-    """M11b's flags stop naming their item; ``--exp_dir`` runs since the
-    trainer was ported and fails only on a directory that holds no
-    experiment (tests/test_torch_train_cli.py drives it on real ones)."""
-    for extra, item in ((["--vad_exp_dir", "x"], "M11b"),
-                        (["--include_overlap"], "M11b")):
-        with pytest.raises(SystemExit, match=f"not ported.*{item}"):
-            t_diar.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
-                         "--device", "cpu"] + extra)
+    """M11b's flags run since the DNN front end was ported: without
+    --segmentation_exp_dir, --include_overlap stops with the JAX CLI's own
+    message; a --vad_exp_dir or --exp_dir that holds no experiment fails
+    loudly (tests/test_torch_dnn_cli.py and tests/test_torch_train_cli.py
+    drive them on real ones)."""
+    with pytest.raises(SystemExit) as want:
+        j_diar.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
+                     "--include_overlap"])
+    with pytest.raises(SystemExit) as got:
+        t_diar.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
+                     "--device", "cpu", "--include_overlap",
+                     "--segmentation_threshold", "0.6"])
+    assert str(got.value) == str(want.value)
+    with pytest.raises(FileNotFoundError, match="config.yaml"):
+        t_diar.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
+                     "--device", "cpu", "--vad_exp_dir",
+                     str(tmp_path / "v"), "--include_overlap",
+                     "--segmentation_exp_dir", str(tmp_path / "s")])
     with pytest.raises(FileNotFoundError, match="config.yaml"):
         t_diar.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
                      "--device", "cpu", "--exp_dir", str(tmp_path / "x")])

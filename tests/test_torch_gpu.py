@@ -590,3 +590,42 @@ def test_bn_training_statistics_on_the_card(cuda, kind, shape):
                                rtol=0, atol=1e-6)
     torch.testing.assert_close(layer.running_var.double(), want_var,
                                rtol=0, atol=1e-6)
+
+
+
+def test_fsmn_front_ends_run_k1_on_the_card(cuda):
+    """DnnVAD and DnnSegmenter at their configs' widths on seeded weights:
+    one K1 launch per batch of windows; probabilities through K1 within
+    1e-3 of the plain fbank's on the card and of the CPU's."""
+    import copy
+
+    from speaker3d_tpu_torch.diar.dnn_seg import DnnSegmenter
+    from speaker3d_tpu_torch.diar.dnn_vad import DnnVAD
+    from speaker3d_tpu_torch.models.fsmn_vad import FSMNVad, lecun_init_
+    from speaker3d_tpu_torch.models.segmentation import FSMNSegmenter
+
+    rng = np.random.default_rng(0)
+    wav = (0.1 * rng.standard_normal(16000 * 13)).astype(np.float32)
+    # 13 s: 3 VAD chunks of 512 frames (one batch of 4), 17 segmenter
+    # windows (3 batches of 8)
+    for front_cls, model_cls, batches in ((DnnVAD, FSMNVad, 1),
+                                          (DnnSegmenter, FSMNSegmenter, 3)):
+        model = lecun_init_(model_cls(), torch.Generator().manual_seed(1))
+        fronts = {d: front_cls(copy.deepcopy(model), device=d)
+                  for d in ("cpu", cuda)}
+
+        def probs(front):
+            return (front.frame_probs(wav)[0] if front_cls is DnnVAD
+                    else front(wav).data)
+
+        on_cpu = probs(fronts["cpu"])
+        front = fronts[cuda]
+        launches = fk.fbank_features.launches
+        got = probs(front)
+        assert fk.fbank_features.launches - launches == batches
+        fb = front.fbank
+        front.fbank = lambda w: fk.fbank_plain(
+            w, fb._B, fb._mel, frame_length=400, frame_shift=160)
+        plain = probs(front)
+        np.testing.assert_allclose(got, plain, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got, on_cpu, rtol=0, atol=1e-3)

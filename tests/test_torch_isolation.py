@@ -52,7 +52,11 @@ def test_package_has_the_slice_modules():
                  "utils.preemption", "utils.profiling", "train.schedulers",
                  "train.losses", "train.sv_train", "data.resample",
                  "data.augmentation", "data.processors", "data.dataset",
-                 "data.prefetch", "cli.train"):
+                 "data.prefetch", "cli.train", "models.fsmn_vad",
+                 "models.segmentation", "diar.overlap", "diar.dnn_vad",
+                 "diar.dnn_seg", "data.dataset_vad", "data.dataset_seg",
+                 "train.vad_train", "train.seg_train", "cli.train_vad",
+                 "cli.train_segmentation"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -111,7 +115,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
         analyze_similarity, check_single_speaker, compute_der,
         compute_score_metrics, extract, infer_diarization, infer_sv,
-        infer_sv_batch, serve_embedding, train)
+        infer_sv_batch, serve_embedding, train, train_segmentation,
+        train_vad)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
@@ -137,8 +142,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        train.main(["--config", "c.yaml"])
+    for trainer in (train, train_vad, train_segmentation):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trainer.main(["--config", "c.yaml"])
+    from speaker3d_tpu_torch.diar.dnn_seg import load_segmentation_exp
+    from speaker3d_tpu_torch.diar.dnn_vad import load_vad_exp
+    for load in (load_vad_exp, load_segmentation_exp):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA"):
         next(device_prefetch(iter([])))
     with pytest.raises(RuntimeError, match="CUDA"):

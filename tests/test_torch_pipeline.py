@@ -98,18 +98,23 @@ def test_cli_rttm_bytes_equal_jax(weights, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    """The flags whose modules are not ported (M11b) stop;
-    --cluster_type spectral|umap_hdbscan run since they were ported
-    (tests/test_torch_diar_cli_extra.py), and --exp_dir since the trainer
-    was (tests/test_torch_train_cli.py): on a directory without an
-    experiment it fails loudly."""
-    for extra in (["--vad_exp_dir", "x"], ["--include_overlap"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            tcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
-                       "--device", "cpu"] + extra)
+    """The DNN front end's flags run since they were ported
+    (tests/test_torch_dnn_cli.py drives them on real experiments): the CLI
+    stops as the JAX CLI does when --include_overlap comes without
+    --segmentation_exp_dir, and fails loudly on a --vad_exp_dir or
+    --exp_dir that holds no experiment."""
+    argv = ["--wav", "a.wav", "--out_dir", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(SystemExit) as want:
+        jcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
+                   "--include_overlap"])
+    with pytest.raises(SystemExit) as got:
+        tcli.main(argv + ["--include_overlap"])
+    assert str(got.value) == str(want.value)
+    assert "--segmentation_exp_dir" in str(got.value)
+    with pytest.raises(FileNotFoundError, match="novad.*config.yaml"):
+        tcli.main(argv + ["--vad_exp_dir", str(tmp_path / "novad")])
     with pytest.raises(FileNotFoundError, match="config.yaml"):
-        tcli.main(["--wav", "a.wav", "--out_dir", str(tmp_path),
-                   "--device", "cpu", "--exp_dir", str(tmp_path / "x")])
+        tcli.main(argv + ["--exp_dir", str(tmp_path / "x")])
 
 
 def test_registry_refuses_unported_ids_and_missing_checkpoints(tmp_path):

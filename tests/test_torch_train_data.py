@@ -77,7 +77,15 @@ def test_resample_segment_equals_scipy_and_jax(up, down):
         tres.resample_poly_segment(x, up, down, n - 2, 3)
 
 
-def test_wav_reader_and_aug_equal_jax_with_the_same_draws(corpus):
+def test_wav_reader_and_aug_equal_jax_with_the_same_draws(corpus,
+                                                          monkeypatch):
+    """The JAX package takes its scipy resampling path here, as in the
+    loader test below: its native resampler (built during a test run by
+    tests/test_native_runtime.py, -march=native -ffast-math) rounds
+    differently, and the reverb's sum over the RIR carries that to 1.07e-6
+    on some CPUs. test_resample_segment_equals_scipy_and_jax holds the port
+    against the native resampler itself."""
+    monkeypatch.setattr(jres, "_native_lib", lambda: None)
     root, rows = corpus
     noise, rir = str(root / "noise.scp"), str(root / "rir.scp")
     rng = random.Random(7)
