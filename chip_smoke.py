@@ -126,14 +126,29 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     abs difference, flips at the threshold counted and each within that
     difference of it). K1 (item 7) is also held at the front ends' [4,
     107760] and [8, 80000] and the trainers' [64, 64000] and [32, 80000],
-    and its share of the two front-end stages printed.
+    and its share of the two front-end stages printed;
+16. bf16 training: ``cli.train`` in a process of its own on
+    ``configs/eres2netv2_w24s4ep4.yaml`` (the diarization CLI's default
+    model, 53.5M, with its ``remat: true``) and ``configs/campplus.yaml``,
+    both as shipped (``compute_dtype: bfloat16``, batch 256, full width)
+    but for the paths and the epochs (cut to 4 epochs of item 14's corpus,
+    24 steps; printed), then w24s4ep4 once more with
+    ``--compute_dtype=float32`` (one epoch): per run the median step time
+    of the last epoch and the first step, samples/s, the data-wait share,
+    peak memory, launches (K1 once per step, K2 never); the bf16-over-fp32
+    step-time ratio; one w24s4ep4 step at B = 64 from the same weights and
+    batch in bf16 through K1 against the plain fbank and against the fp32
+    step (loss relative difference, the cosine of the embedding layer's
+    update; the first conv's and the median over tensors printed), and with
+    remat against without (loss, running statistics), the state left in
+    fp32.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
 diarization, SV, backbone, server, clustering-CLI and analysis runs
-together, and in the training, ``extract --exp_dir``, DNN front-end and
-VAD/segmenter training runs (``launches_by_path`` apart).
+together, and in the training, bf16 training, ``extract --exp_dir``, DNN
+front-end and VAD/segmenter training runs (``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -1637,18 +1652,21 @@ def train_corpus(folder: str, seed: int = 300) -> tuple:
     return csv, lists[0], lists[1]
 
 
-def _train_cli(folder: str, csv: str, noise: str, rir: str) -> dict:
-    """cli.train on configs/eres2netv2.yaml as it is, overriding only the
-    paths, one epoch and remat; at the config's batch, or the largest of the
-    cuts that fits on the card."""
+def _train_cli(folder: str, csv: str, noise: str, rir: str,
+               config: str = TRAIN_CONFIG, tag: str = "eres2netv2",
+               extra: tuple = ("--remat=true",), epochs: int = 1) -> dict:
+    """cli.train on ``config`` as it is, overriding only the paths, the
+    epochs and ``extra``; at the config's batch, or the largest of the cuts
+    that fits on the card. Step times of the last epoch (warm), the first
+    step of the first, the data-wait share over all epochs."""
     import torch
 
     torch.cuda.empty_cache()
     for batch in TRAIN_BATCHES:
-        exp = os.path.join(folder, f"exp_b{batch}")
-        argv = ["--config", TRAIN_CONFIG, f"--exp_dir={exp}", f"--data={csv}",
-                f"--noise={noise}", f"--reverb={rir}", "--num_epoch=1",
-                "--remat=true"]
+        exp = os.path.join(folder, f"exp_{tag}_b{batch}")
+        argv = (["--config", config, f"--exp_dir={exp}", f"--data={csv}",
+                 f"--noise={noise}", f"--reverb={rir}",
+                 f"--num_epoch={epochs}"] + list(extra))
         if batch != TRAIN_BATCHES[0]:
             argv.append(f"--batch_size={batch}")
         t0 = time.perf_counter()
@@ -1661,108 +1679,152 @@ def _train_cli(folder: str, csv: str, noise: str, rir: str) -> dict:
         if out.returncode == 0:
             break
         if "out of memory" not in out.stderr:
-            raise AssertionError(f"cli.train failed (rc {out.returncode}):\n"
-                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-        log(f"[train] batch {batch} does not fit on the card; trying the next")
+            raise AssertionError(f"cli.train {config} failed (rc "
+                                 f"{out.returncode}):\n{out.stdout[-3000:]}"
+                                 f"\n{out.stderr[-3000:]}")
+        log(f"[train] {config}: batch {batch} does not fit on the card; "
+            f"trying the next")
     else:
-        raise AssertionError("cli.train: no batch of "
+        raise AssertionError(f"cli.train {config}: no batch of "
                              f"{TRAIN_BATCHES} fits on the card")
-    summary = re.search(
-        r"epoch 1: (\d+) steps of (\d+), step ([\d.]+) ms \(median; the first "
-        r"([\d.]+)\), "
-        r"([\d.]+) samples/s, data_wait_s ([\d.]+) of ([\d.]+) s, peak memory "
-        r"([\d.]+) GiB", out.stdout)
+    lines = [m.groups() for m in re.finditer(
+        r"epoch (\d+): (\d+) steps of (\d+), step ([\d.]+) ms \(median; the "
+        r"first ([\d.]+)\), ([\d.]+) samples/s, data_wait_s ([\d.]+) of "
+        r"([\d.]+) s(?:, peak memory ([\d.]+) GiB)?", out.stdout)]
     counts = re.search(r"\[train launches\] (\{.*\})", out.stdout)
-    if summary is None or counts is None:
-        raise AssertionError(f"cli.train printed no epoch summary:\n"
+    if len(lines) != epochs or counts is None:
+        raise AssertionError(f"cli.train {config} printed {len(lines)} of "
+                             f"{epochs} epoch summaries:\n"
                              f"{out.stdout[-3000:]}")
-    steps, b = int(summary.group(1)), int(summary.group(2))
+    steps = sum(int(line[1]) for line in lines)
+    last, b = lines[-1], int(lines[-1][2])
+    wait = sum(float(line[6]) for line in lines)
+    epoch_s = sum(float(line[7]) for line in lines)
     counts = json.loads(counts.group(1))
     with open(os.path.join(exp, "train_epoch.log")) as f:
         epoch_log = f.read().strip()
-    loss = float(re.search(r"avg_loss: ([-\d.e]+)", epoch_log).group(1))
-    stats = {"batch": b, "cut": None if b == TRAIN_BATCHES[0] else
-             f"batch {b}: {TRAIN_BATCHES[0]} with remat did not fit",
-             "steps": steps, "step_ms_median": float(summary.group(3)),
-             "first_step_ms": float(summary.group(4)),
-             "samples_per_s": float(summary.group(5)),
-             "data_wait_s": float(summary.group(6)),
-             "epoch_s": float(summary.group(7)),
-             "data_wait_share": float(summary.group(6)) / float(summary.group(7)),
+    loss = float(re.findall(r"avg_loss: ([-\d.e]+)", epoch_log)[-1])
+    stats = {"config": config, "batch": b,
+             "cut": None if b == TRAIN_BATCHES[0] else
+             f"batch {b}: {TRAIN_BATCHES[0]} did not fit", "epochs": epochs,
+             "steps": steps, "step_ms_median": float(last[3]),
+             "step_ms_median_by_epoch": [float(line[3]) for line in lines],
+             "first_step_ms": float(lines[0][4]),
+             "samples_per_s": float(last[5]),
+             "data_wait_s": wait, "epoch_s": epoch_s,
+             "data_wait_share": wait / epoch_s,
              "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
              "k1": counts["k1"], "k2": counts["k2"], "avg_loss": loss,
              "process_wall_s": wall}
-    if not (os.path.isdir(os.path.join(exp, "models", "CKPT-EPOCH-1-00"))
-            and np.isfinite(loss)):
-        raise AssertionError(f"cli.train: no checkpoint or loss {loss}")
+    ckpt = os.path.join(exp, "models", f"CKPT-EPOCH-{epochs}-00")
+    if not (os.path.isdir(ckpt) and np.isfinite(loss)):
+        raise AssertionError(f"cli.train {config}: no checkpoint or loss "
+                             f"{loss}")
     if counts["k1"] != steps or counts["k2"] != 0:
-        raise AssertionError(f"cli.train: launches K1 {counts['k1']} K2 "
-                             f"{counts['k2']} in {steps} steps; want K1 once "
-                             f"per step, K2 never (training takes the "
-                             f"unfused blocks)")
+        raise AssertionError(f"cli.train {config}: launches K1 "
+                             f"{counts['k1']} K2 {counts['k2']} in {steps} "
+                             f"steps; want K1 once per step, K2 never "
+                             f"(training takes the unfused blocks)")
     stats["exp"] = exp
     return stats
 
 
-def _train_step_checks(csv: str) -> dict:
-    """One step of the 17.8M model at B = 64 from the same weights and batch:
-    through K1 against the plain fbank, and with remat against without."""
-    import copy
+def _check_batch(csv: str) -> dict:
+    """TRAIN_CHECK_BATCH seeded 3 s crops of the corpus and their labels on
+    the card."""
     import random
 
     import torch
 
-    from speaker3d_tpu_torch.cli.train import build_model
     from speaker3d_tpu_torch.data.processors import SpkLabelEncoder, WavReader
-    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
-    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
-    from speaker3d_tpu_torch.train import sv_train
-    from speaker3d_tpu_torch.utils.config import build_config
     from speaker3d_tpu_torch.utils.fileio import load_data_csv
 
-    config = build_config(os.path.join(ROOT, TRAIN_CONFIG))
     rows = list(load_data_csv(csv).values())[:TRAIN_CHECK_BATCH]
     reader = WavReader(FS, 3.0, speed_pertub=True, rng=random.Random(0))
     enc = SpkLabelEncoder(csv)
     samples = [reader(r["wav"]) for r in rows]
-    batch = {"wavs": torch.from_numpy(np.stack([w for w, _ in samples])).cuda(),
-             "labels": torch.tensor([enc(r["spk"], sp) for r, (_, sp) in
-                                     zip(rows, samples)]).cuda()}
-    cfg = sv_train.SVTrainConfig(
-        num_classes=3 * len(enc), step_per_epoch=6,
-        embedding_size=config["embedding_size"])
-    fb = KaldiFbank(FbankConfig(), mean_norm=True, device="cuda")
+    return {"wavs": torch.from_numpy(np.stack([w for w, _ in samples])).cuda(),
+            "labels": torch.tensor([enc(r["spk"], sp) for r, (_, sp) in
+                                    zip(rows, samples)]).cuda(),
+            "num_classes": 3 * len(enc)}
+
+
+def _plain_train_fbank(fb):
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
 
     def plain_fbank(wav):
         feats = fk.fbank_plain(wav, fb._B, fb._mel,
                                frame_length=fb.cfg.frame_length,
                                frame_shift=fb.cfg.frame_shift)
         return feats - feats.mean(dim=-2, keepdim=True)
+    return plain_fbank
 
+
+def _one_step(base, cfg, batch, feature_fn, remat: bool,
+              compute_dtype: str = "float32") -> tuple:
+    """One SGD step of a copy of ``base``: loss, state_dict, K1 launches,
+    peak GiB."""
+    import copy
+
+    import torch
+
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.train import sv_train
+
+    model = copy.deepcopy(base)
+    cfg = cfg._replace(remat=remat, compute_dtype=compute_dtype)
+    state = sv_train.init_sv_train_state(model, cfg, seed=5, device="cuda")
+    step = sv_train.make_sv_train_step(model, cfg, feature_fn=feature_fn)
+    torch.cuda.reset_peak_memory_stats()
+    launches = fk.fbank_features.launches
+    metrics = step(state, {"wavs": batch["wavs"], "labels": batch["labels"]})
+    torch.cuda.synchronize()
+    return (float(metrics["loss"]), state.model.state_dict(),
+            fk.fbank_features.launches - launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _worst(a, b, keys) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+
+def _update_cosines(sd, want, start, params) -> list:
+    """Per parameter tensor: the cosine of ``sd``'s update from ``start``
+    with ``want``'s (1 where neither moved, 0 where one of them did not)."""
+    out = []
+    for k in params:
+        u = (sd[k] - start[k]).flatten().double()
+        w = (want[k] - start[k]).flatten().double()
+        norm = float(u.norm() * w.norm())
+        out.append(float(u @ w) / norm if norm > 0 else
+                   float(u.norm() == w.norm()))
+    return out
+
+
+def _train_step_checks(csv: str) -> dict:
+    """One step of the 17.8M model at B = 64 from the same weights and batch:
+    through K1 against the plain fbank, and with remat against without."""
+    import torch
+
+    from speaker3d_tpu_torch.cli.train import build_model
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.train import sv_train
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    config = build_config(os.path.join(ROOT, TRAIN_CONFIG))
+    batch = _check_batch(csv)
+    cfg = sv_train.SVTrainConfig(
+        num_classes=batch["num_classes"], step_per_epoch=6,
+        embedding_size=config["embedding_size"])
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device="cuda")
     base = build_model(config, seed=5).cuda()
-
-    def one_step(feature_fn, remat):
-        model = copy.deepcopy(base)
-        state = sv_train.init_sv_train_state(model, cfg, seed=5, device="cuda")
-        step = sv_train.make_sv_train_step(model, cfg._replace(remat=remat),
-                                           feature_fn=feature_fn)
-        torch.cuda.reset_peak_memory_stats()
-        launches = fk.fbank_features.launches
-        metrics = step(state, batch)
-        torch.cuda.synchronize()
-        return (float(metrics["loss"]), state.model.state_dict(),
-                fk.fbank_features.launches - launches,
-                torch.cuda.max_memory_allocated() / 2**30)
-
-    k1_loss, k1_sd, k1_n, mem_plain = one_step(fb, False)
-    pl_loss, pl_sd, pl_n, _ = one_step(plain_fbank, False)
-    rm_loss, rm_sd, rm_n, mem_remat = one_step(fb, True)
+    k1_loss, k1_sd, k1_n, mem_plain = _one_step(base, cfg, batch, fb, False)
+    pl_loss, pl_sd, pl_n, _ = _one_step(base, cfg, batch,
+                                        _plain_train_fbank(fb), False)
+    rm_loss, rm_sd, rm_n, mem_remat = _one_step(base, cfg, batch, fb, True)
     if (k1_n, pl_n, rm_n) != (1, 0, 1):
         raise AssertionError(f"train step launches K1 {(k1_n, pl_n, rm_n)}; "
                              f"want 1 through K1, 0 through the plain fbank")
-
-    def worst(a, b, keys):
-        return max(float((a[k] - b[k]).abs().max()) for k in keys)
 
     params = [n for n, _ in base.named_parameters()]
     start = base.state_dict()
@@ -1771,11 +1833,11 @@ def _train_step_checks(csv: str) -> dict:
     stats_keys = [k for k in k1_sd if k.endswith(("running_mean",
                                                   "running_var"))]
     out = {"k1_vs_plain_loss_rel": abs(k1_loss - pl_loss) / abs(pl_loss),
-           "k1_vs_plain_param_max_abs": worst(k1_sd, pl_sd, params),
-           "k1_vs_plain_stats_max_abs": worst(k1_sd, pl_sd, stats_keys),
+           "k1_vs_plain_param_max_abs": _worst(k1_sd, pl_sd, params),
+           "k1_vs_plain_stats_max_abs": _worst(k1_sd, pl_sd, stats_keys),
            "remat_vs_plain_loss_rel": abs(rm_loss - k1_loss) / abs(k1_loss),
-           "remat_vs_plain_stats_max_abs": worst(rm_sd, k1_sd, stats_keys),
-           "remat_vs_plain_param_max_abs": worst(rm_sd, k1_sd, params),
+           "remat_vs_plain_stats_max_abs": _worst(rm_sd, k1_sd, stats_keys),
+           "remat_vs_plain_param_max_abs": _worst(rm_sd, k1_sd, params),
            "k1_vs_plain_worst_param": name,
            "k1_vs_plain_worst_param_update_max_abs": update,
            "loss": k1_loss, "peak_gib_b64_plain": mem_plain,
@@ -1856,7 +1918,145 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
                extract_min_cosine=cos, extract_wall_s=wall,
                extract_min_pair_cosine=spread)
     return {"k1": run["k1"], "k2": run["k2"], "extract_k1": k1,
-            "extract_k2": k2, "stats": run}
+            "extract_k2": k2, "stats": run, "corpus": (folder, csv, noise, rir)}
+
+
+# bf16 training: configs/eres2netv2_w24s4ep4.yaml (the diarization CLI's
+# default model, 53.5M, remat) and configs/campplus.yaml as shipped (bf16,
+# batch 256), BF16_EPOCHS epochs of the trainer's corpus; then w24s4ep4 once
+# with --compute_dtype=float32 (one epoch), and the B = 64 step checks
+BF16_CONFIGS = (("eres2netv2_w24s4ep4",
+                 os.path.join("configs", "eres2netv2_w24s4ep4.yaml")),
+                ("campplus", os.path.join("configs", "campplus.yaml")))
+BF16_EPOCHS = 4                   # the cut: 4 epochs of 6 steps (the config: 70)
+# the B = 64 bf16 step against the same step through the plain fbank and
+# against the fp32 step: bf16 rounds the features and every activation, so
+# the steps differ as bf16 noise does. The loss agrees; the embedding
+# layer's update (its gradient comes straight from the loss) agrees; the
+# early layers' updates, whose gradients cross the whole bf16 trunk
+# backwards, decorrelate on these random weights (on the H100 the median
+# cosine over tensors was 0.02; on the CPU, 17.8M at B = 16: conv1 0.03,
+# seg_1 0.99): they are printed, not held. A step whose gradients missed
+# the fp32 masters would move seg_1 by weight decay alone.
+BF16_LOSS_REL = {"k1_vs_plain": 1e-2, "bf16_vs_fp32": 5e-2}
+BF16_HEAD = "seg_1.weight"
+BF16_HEAD_COS = 0.9
+# remat against none in bf16: the same kernels on the same inputs; a second
+# running-statistics update would move them by ~1e-2
+BF16_REMAT_TOL = 1e-3
+
+
+def _bf16_step_checks(csv: str) -> dict:
+    """One step of w24s4ep4 at B = 64 from the same weights and batch, in
+    bf16: through K1 against the plain fbank, against the fp32 step, and
+    with remat against without."""
+    from speaker3d_tpu_torch.cli.train import build_model
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.train import sv_train
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    config = build_config(os.path.join(ROOT, BF16_CONFIGS[0][1]))
+    batch = _check_batch(csv)
+    cfg = sv_train.SVTrainConfig(
+        num_classes=batch["num_classes"], step_per_epoch=6,
+        embedding_size=config["embedding_size"])
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device="cuda")
+    base = build_model(config, seed=5).cuda()
+    runs = {"bf16": (fb, False, "bfloat16"),
+            "bf16_plain": (_plain_train_fbank(fb), False, "bfloat16"),
+            "fp32": (fb, False, "float32"),
+            "bf16_remat": (fb, True, "bfloat16")}
+    got = {k: _one_step(base, cfg, batch, *v) for k, v in runs.items()}
+    launches = {k: v[2] for k, v in got.items()}
+    if launches != {"bf16": 1, "bf16_plain": 0, "fp32": 1, "bf16_remat": 1}:
+        raise AssertionError(f"bf16 train step launches K1 {launches}")
+    params = [n for n, _ in base.named_parameters()]
+    start = base.state_dict()
+    stats_keys = [k for k in start if k.endswith(("running_mean",
+                                                  "running_var"))]
+    loss, sd = got["bf16"][0], got["bf16"][1]
+    out = {"loss": loss, "peak_gib": {k: v[3] for k, v in got.items()}}
+    for other in ("bf16_plain", "fp32"):
+        key = "k1_vs_plain" if other == "bf16_plain" else "bf16_vs_fp32"
+        cos = _update_cosines(sd, got[other][1], start, params)
+        out[key] = {"loss_rel": abs(loss - got[other][0]) / abs(got[other][0]),
+                    "head_update_cos": cos[params.index(BF16_HEAD)],
+                    "first_conv_update_cos": cos[0],
+                    "update_cos_median": float(np.median(cos)),
+                    "update_cos_min": min(cos),
+                    "param_max_abs": _worst(sd, got[other][1], params),
+                    "stats_max_abs": _worst(sd, got[other][1], stats_keys)}
+        if not (np.isfinite(loss) and out[key]["loss_rel"] <= BF16_LOSS_REL[key]
+                and out[key]["head_update_cos"] >= BF16_HEAD_COS):
+            raise AssertionError(f"bf16 train step, {key}: {out[key]}")
+    out["remat_vs_plain"] = {
+        "loss_rel": abs(got["bf16_remat"][0] - loss) / abs(loss),
+        "stats_max_abs": _worst(got["bf16_remat"][1], sd, stats_keys),
+        "param_max_abs": _worst(got["bf16_remat"][1], sd, params)}
+    if not (out["remat_vs_plain"]["loss_rel"] <= BF16_REMAT_TOL
+            and out["remat_vs_plain"]["stats_max_abs"] <= BF16_REMAT_TOL):
+        raise AssertionError(f"bf16 train step with remat vs without: "
+                             f"{out['remat_vs_plain']}")
+    kept = {str(v.dtype) for v in sd.values()}
+    if not kept <= {"torch.float32", "torch.int64"}:
+        raise AssertionError(f"bf16 step left the state in {kept}; want "
+                             f"fp32 masters and statistics")
+    return out
+
+
+def _log_train_run(smi: str, what: str, run: dict) -> None:
+    log(f"[train bf16] {smi}: {what}, {run['steps']} steps of batch "
+        f"{run['batch']} over {run['epochs']} epoch(s): step "
+        f"{run['step_ms_median']:.1f} ms (median of the last epoch, CUDA "
+        f"events; by epoch {run['step_ms_median_by_epoch']}; the first step "
+        f"{run['first_step_ms']:.1f}), {run['samples_per_s']:.1f} samples/s, "
+        f"data wait {run['data_wait_s']:.2f} of {run['epoch_s']:.2f} s "
+        f"({run['data_wait_share']:.1%}), max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.2f} GiB; launches K1 {run['k1']} "
+        f"({run['k1'] / run['steps']:.0f} per step) K2 {run['k2']}; avg_loss "
+        f"{run['avg_loss']:.4f}; the process {run['process_wall_s']:.1f} s"
+        + (f"; CUT: {run['cut']}" if run["cut"] else ""))
+
+
+def phase_train_bf16(corpus: tuple, smi: str) -> dict:
+    """The two bf16 configs through cli.train at full width and batch, the
+    default model's config again in fp32, the B = 64 bf16 step checks."""
+    folder, csv, noise, rir = corpus
+    runs = {}
+    for tag, config in BF16_CONFIGS:
+        runs[tag] = _train_cli(folder, csv, noise, rir, config, tag, (),
+                               BF16_EPOCHS)
+        _log_train_run(smi, f"cli.train on {config} as shipped (bf16"
+                       f"{', remat' if 'w24' in tag else ''}; CUT: "
+                       f"{BF16_EPOCHS} epochs of the corpus, not 70)",
+                       runs[tag])
+    tag, config = BF16_CONFIGS[0]
+    runs[f"{tag}_fp32"] = fp32 = _train_cli(
+        folder, csv, noise, rir, config, f"{tag}_fp32",
+        ("--compute_dtype=float32",), 1)
+    _log_train_run(smi, f"cli.train on {config} with --compute_dtype="
+                   f"float32 (CUT: 1 epoch)", fp32)
+    bf16 = runs[tag]
+    log(f"[train bf16] {tag}: bf16 {bf16['step_ms_median']:.1f} ms a step "
+        f"against fp32 {fp32['step_ms_median']:.1f} "
+        f"({fp32['step_ms_median'] / bf16['step_ms_median']:.2f}x) at batch "
+        f"{bf16['batch']} / {fp32['batch']}; peak "
+        f"{bf16['max_memory_allocated_gib']:.2f} against "
+        f"{fp32['max_memory_allocated_gib']:.2f} GiB")
+    checks = _bf16_step_checks(csv)
+    log(f"[train bf16 step B={TRAIN_CHECK_BATCH}] {smi}: w24s4ep4, loss "
+        f"{checks['loss']:.4f}; through K1 vs the plain fbank "
+        f"{checks['k1_vs_plain']} (loss rel <= {BF16_LOSS_REL['k1_vs_plain']}"
+        f", {BF16_HEAD} update cosine >= {BF16_HEAD_COS}); bf16 vs fp32 "
+        f"{checks['bf16_vs_fp32']} (loss rel <= "
+        f"{BF16_LOSS_REL['bf16_vs_fp32']}, {BF16_HEAD} update cosine >= "
+        f"{BF16_HEAD_COS}); remat vs without {checks['remat_vs_plain']} "
+        f"(<= {BF16_REMAT_TOL}); peak GiB {checks['peak_gib']}")
+    return {"k1": sum(r["k1"] for r in runs.values()),
+            "k2": sum(r["k2"] for r in runs.values()),
+            "stats": {"runs": {k: {x: y for x, y in r.items() if x != "exp"}
+                               for k, r in runs.items()},
+                      "step_checks": checks}}
 
 # the DNN front end: the VAD and segmenter trainers on their configs at full
 # width (cut: synthetic windows per epoch and epochs, against the configs'
@@ -2279,6 +2479,7 @@ def main() -> int:
         diar_cluster = phase_diar_cluster(work, pipe["models"], device["smi"])
         analysis = phase_analysis(work, pipe["models"], sv)
         train = phase_train(work, sv, device["smi"])
+        train16 = phase_train_bf16(train["corpus"], device["smi"])
         dnn = phase_dnn_front(work, pipe["models"], device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
@@ -2296,6 +2497,7 @@ def main() -> int:
                                  "diarization_clustering": diar_cluster[key],
                                  "analysis": analysis[key],
                                  "train": train[key],
+                                 "train_bf16": train16[key],
                                  "train_extract": train[f"extract_{key}"],
                                  "dnn_front": dnn[key],
                                  "dnn_train": dnn["train_k1"] if key == "k1"
@@ -2310,6 +2512,7 @@ def main() -> int:
                     "analysis": analysis["stats"], "cluster": cluster,
                     "train": {k: v for k, v in train["stats"].items()
                               if k != "exp"},
+                    "train_bf16": train16["stats"],
                     "dnn_front": {k: v for k, v in dnn.items()
                                   if k not in ("k1", "k2", "train_k1")}}))
     print(json.dumps({"kernels": [k1, k2, k3]}))

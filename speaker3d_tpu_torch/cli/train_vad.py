@@ -27,6 +27,7 @@ training over several cards is ROADMAP.md M14).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -34,7 +35,11 @@ import torch
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.utils.config import build_config
+from speaker3d_tpu_torch.utils.threads import cpu_threads
 
+# the tests' tiny VAD trainer on 8 cores: 7.0 s at 8 threads, 4.6 s at 2;
+# with 8 busy processes 74.2 s at 8 threads, 12.0 s at 2, 9.4 s at 1
+FSMN_CPU_THREADS = 2
 MULTI_CARD_NOT_PORTED = ("data-parallel FSMN training over several cards "
                          "is ROADMAP.md M14; the trainer runs on one card")
 
@@ -128,42 +133,49 @@ def train_fsmn(args, device, config, dataset, model, make_step,
     preempted = False
     tracer = StepTracer(args.profile_dir, num_steps=args.profile_steps)
     global_step = 0
-    for epoch in epoch_counter:
-        loader.set_epoch(epoch)
-        t0 = time.time()
-        losses, accs = [], []
-        timed = _TimedIter(device_prefetch(loader, device))
-        clock = _StepClock(device)
-        for i, batch in enumerate(timed):
+    # on the CPU the loop's small ops synchronise torch's thread pool at
+    # every op: at most FSMN_CPU_THREADS threads (utils/threads.py)
+    threads = (cpu_threads(min(torch.get_num_threads(), FSMN_CPU_THREADS))
+               if device.type == "cpu" else contextlib.nullcontext())
+    with threads:
+        for epoch in epoch_counter:
+            loader.set_epoch(epoch)
+            t0 = time.time()
+            losses, accs = [], []
+            timed = _TimedIter(device_prefetch(loader, device))
+            clock = _StepClock(device)
+            for i, batch in enumerate(timed):
+                clock.mark()
+                tracer.before_step(global_step)
+                metrics = train_step(state, batch)
+                tracer.after_step(global_step, wait_for=metrics["loss"])
+                global_step += 1
+                if shutdown.poll():
+                    preempted = True
+                    break
+                # device scalars, read once per epoch (or at a log line)
+                losses.append(metrics["loss"])
+                accs.append(metrics["acc"])
+                if (i + 1) % log_every == 0:
+                    print(f"epoch {epoch} step {i+1}/{step_per_epoch} "
+                          f"loss {float(losses[-1]):.4f} "
+                          f"acc {float(accs[-1]):.3f} "
+                          f"lr {float(metrics['lr']):.6f}", flush=True)
             clock.mark()
-            tracer.before_step(global_step)
-            metrics = train_step(state, batch)
-            tracer.after_step(global_step, wait_for=metrics["loss"])
-            global_step += 1
-            if shutdown.poll():
-                preempted = True
+            timed.close()
+            if preempted:
+                save_preemption_checkpoint(checkpointer, epoch_counter, epoch,
+                                           {"train_state": state_tree(state)})
                 break
-            # device scalars, read once per epoch (or at a log line)
-            losses.append(metrics["loss"])
-            accs.append(metrics["acc"])
-            if (i + 1) % log_every == 0:
-                print(f"epoch {epoch} step {i+1}/{step_per_epoch} "
-                      f"loss {float(losses[-1]):.4f} acc {float(accs[-1]):.3f} "
-                      f"lr {float(metrics['lr']):.6f}", flush=True)
-        clock.mark()
-        timed.close()
-        if preempted:
-            save_preemption_checkpoint(checkpointer, epoch_counter, epoch,
-                                       {"train_state": state_tree(state)})
-            break
-        logger.log_stats(
-            {"epoch": epoch, "time_s": round(time.time() - t0, 1),
-             "data_wait_s": round(timed.wait, 1)},
-            {"avg_loss": fetch_mean(losses) if losses else None,
-             "avg_acc": fetch_mean(accs) if accs else None})
-        print_epoch_summary(epoch, clock, timed, loader.batch_size,
-                            time.time() - t0, device)
-        checkpointer.save_checkpoint(epoch, {"train_state": state_tree(state)})
+            logger.log_stats(
+                {"epoch": epoch, "time_s": round(time.time() - t0, 1),
+                 "data_wait_s": round(timed.wait, 1)},
+                {"avg_loss": fetch_mean(losses) if losses else None,
+                 "avg_acc": fetch_mean(accs) if accs else None})
+            print_epoch_summary(epoch, clock, timed, loader.batch_size,
+                                time.time() - t0, device)
+            checkpointer.save_checkpoint(epoch,
+                                         {"train_state": state_tree(state)})
     tracer.close()
     shutdown.finalize(preempted)
 

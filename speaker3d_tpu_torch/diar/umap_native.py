@@ -26,14 +26,21 @@ objective.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.diar.hdbscan_native import pairwise_euclidean
+from speaker3d_tpu_torch.utils.threads import cpu_threads
 
 SMOOTH_K_TOLERANCE = 1e-5
 MIN_K_DIST_SCALE = 1e-3
+# the CPU layout's elements per intra-op thread: the CLI's ~46 chunks (966
+# edges x 44 components) run on one thread, 2,000 chunks (42,564 x 60) on up
+# to 9 (idle 8 cores, 2,000 chunks: 24.7 s at 8 threads, 109 s at 1)
+LAYOUT_ELEMS_PER_THREAD = 1 << 18
 
 
 def find_ab_params(spread: float = 1.0, min_dist: float = 0.0):
@@ -208,7 +215,13 @@ def umap_embed(x: np.ndarray, n_neighbors: int = 15, n_components: int = 2,
     a, b = find_ab_params(spread, min_dist)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
+    # on the CPU each epoch is ~45 small ops: one intra-op thread per
+    # LAYOUT_ELEMS_PER_THREAD elements of an op, so that a small layout does
+    # not synchronise a pool of idle threads at every op (utils/threads.py)
+    threads = (contextlib.nullcontext() if dev.type != "cpu" else cpu_threads(
+        min(torch.get_num_threads(),
+            len(rows) * n_components // LAYOUT_ELEMS_PER_THREAD)))
+    with torch.no_grad(), threads:
         y = optimize_layout(
             torch.as_tensor(y0, device=dev),
             torch.as_tensor(rows, dtype=torch.long, device=dev),

@@ -178,10 +178,13 @@ class TransitLayer(nn.Module):
 
 
 class StatsPool(nn.Module):
-    """Mean ‖ unbiased std over time: [B, C, T] -> [B, 2C]."""
+    """Mean ‖ unbiased std over time: [B, C, T] -> [B, 2C]. The std is the
+    square root of the variance, as the JAX module takes it: in bf16 the
+    variance is rounded before the root."""
 
     def forward(self, x):
-        return torch.cat([x.mean(dim=-1), x.std(dim=-1, unbiased=True)], dim=-1)
+        std = torch.sqrt(x.var(dim=-1, unbiased=True))
+        return torch.cat([x.mean(dim=-1), std], dim=-1)
 
 
 class DenseLayer(nn.Module):

@@ -7,6 +7,12 @@ package's ``flax.linen.BatchNorm`` does: ``running = 0.99 * running + 0.01 *
 batch``, with the *biased* batch variance (torch's own default is momentum
 0.1 with the unbiased variance). ``frozen_running_stats`` turns the update
 off for a block, as the recomputation of a checkpointed block needs.
+
+In a bf16 train step (``train/sv_train.py``: bf16 input, bf16 casts of
+the parameters) the training-mode forward is Flax's under
+``bn_compute_dtype(bfloat16)``: batch statistics reduced in fp32, the
+normalisation in fp32 with the bf16-rounded scale and bias, the output in
+bf16, the running statistics fp32.
 """
 
 from __future__ import annotations
@@ -47,8 +53,13 @@ class _FlaxStatsBatchNorm:
         # checkpointed block's recomputation saves the same tensors)
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                           self.eps)
+        weight, bias = self.weight, self.bias
+        if weight is not None and x.dtype != mean.dtype:
+            # a bf16 step (train/sv_train.py): Flax normalises in fp32 with
+            # the bf16-rounded scale and bias and rounds the output to x's
+            # dtype; F.batch_norm takes fp32 weights beside a bf16 input
+            weight, bias = weight.float(), bias.float()
+        out = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
         if _frozen[0]:
             return out
         n = x.numel() // x.shape[1]

@@ -11,13 +11,23 @@ weight decay on every parameter (BatchNorm and biases included):
 
 which is ``torch.optim.SGD(momentum=m, nesterov=True, weight_decay=wd)``'s
 update, with the buffers kept by parameter name for the checkpoint. lr and
-margin come from the step counter before it is incremented. The step runs
-in fp32: TF32 is off for its duration and restored afterwards.
+margin come from the step counter before it is incremented. TF32 is off for
+the step's duration and restored afterwards.
+
+``compute_dtype: bfloat16`` runs the backbone in bf16 as the JAX step does:
+the fbank in fp32, then the features and a bf16 cast of every fp32
+parameter into the backbone (``bf16_parameters``; the BatchNorm running
+statistics stay fp32 buffers, and BatchNorm normalises as Flax's under
+``bn_compute_dtype(bfloat16)``, ``models/common.py``), the embedding cast
+back to fp32; the classifier, the loss, the accuracy and SGD run in fp32
+on the fp32 masters, whose gradients are the bf16 gradients cast up (the
+backward of the cast). Not ``torch.autocast``, which keeps BatchNorm and
+reductions in fp32 and casts per op: a different computation.
 
 One card: ``model_parallel > 1`` (classes sharded over cards) is ROADMAP.md
 M14. ``remat`` recomputes ERes2NetV2's residual blocks in the backward
-(``models/eres2netv2.py``); other backbones' remat and ``compute_dtype:
-bfloat16`` are refused with the ROADMAP.md item that ports them.
+(``models/eres2netv2.py``); other backbones' remat is refused with the
+ROADMAP.md item that ports it.
 
 The train state's checkpoint tree (``state_tree``) holds ``model/<state_dict
 name>``, ``cls_w``, ``momentum/model/<parameter name>``, ``momentum/cls_w``
@@ -27,6 +37,7 @@ and ``step``; ``load_state_tree`` also reads the JAX trainer's tree
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -39,8 +50,6 @@ from speaker3d_tpu_torch.eval.embedding import matmul_precision
 from speaker3d_tpu_torch.train.losses import sharded_arc_margin_loss
 from speaker3d_tpu_torch.train.schedulers import margin_at_step, warmup_cosine_lr
 
-BF16_NOT_PORTED = ("compute_dtype: bfloat16 is not ported to the PyTorch "
-                   "package yet (ROADMAP.md Queue 1, bf16 compute_dtype)")
 REMAT_NOT_PORTED = ("remat: true for {name} is not ported to the PyTorch "
                     "package yet (ROADMAP.md Queue 1, remat for the other "
                     "backbones); ERes2NetV2 takes it")
@@ -68,7 +77,7 @@ class SVTrainConfig(NamedTuple):
     scale: float = 32.0
     easy_margin: bool = False
     remat: bool = False
-    compute_dtype: str = "float32"  # "float32"; "bfloat16" is refused
+    compute_dtype: str = "float32"  # or "bfloat16" (the backbone's dtype)
 
 
 class SVTrainState:
@@ -88,10 +97,9 @@ def check_train_options(model, cfg: SVTrainConfig,
     """Refuse what the port does not run yet, naming its ROADMAP.md item."""
     if model_parallel != 1:
         raise NotImplementedError(MODEL_PARALLEL_NOT_PORTED)
-    if cfg.compute_dtype != "float32":
-        if cfg.compute_dtype == "bfloat16":
-            raise NotImplementedError(BF16_NOT_PORTED)
-        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
+                         f"expected 'float32' or 'bfloat16'")
     if cfg.remat and not hasattr(model, "remat"):
         raise NotImplementedError(REMAT_NOT_PORTED.format(
             name=type(model).__name__))
@@ -119,6 +127,24 @@ def init_sv_train_state(model: torch.nn.Module, cfg: SVTrainConfig, *,
     return SVTrainState(model, cls_w, momentum, 0)
 
 
+@contextlib.contextmanager
+def bf16_parameters(model: torch.nn.Module):
+    """Within the block every fp32 parameter of ``model`` reads as its bf16
+    cast (a tensor in autograd's graph, so gradients reach the fp32
+    masters); buffers stay as they are. The block spans the backward too: a
+    checkpointed block's recomputation reads the same casts."""
+    masters = [(mod, name, p) for mod in model.modules()
+               for name, p in mod._parameters.items()
+               if p is not None and p.dtype == torch.float32]
+    try:
+        for mod, name, p in masters:
+            mod._parameters[name] = p.to(torch.bfloat16)
+        yield
+    finally:
+        for mod, name, p in masters:
+            mod._parameters[name] = p
+
+
 def _l2norm(x, eps=1e-12):
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
 
@@ -138,6 +164,7 @@ def make_sv_train_step(model: torch.nn.Module, cfg: SVTrainConfig,
         model.remat = True
     batch_key = "wavs" if feature_fn is not None else "feats"
     m, wd = cfg.momentum, cfg.weight_decay
+    half = cfg.compute_dtype == "bfloat16"
 
     def step(state: SVTrainState, batch) -> Dict[str, torch.Tensor]:
         lr = warmup_cosine_lr(
@@ -161,13 +188,16 @@ def make_sv_train_step(model: torch.nn.Module, cfg: SVTrainConfig,
                 x = feature_fn(x)
             state.model.train()
             names, params = zip(*state.model.named_parameters())
-            emb = state.model(x)
-            cos = _l2norm(emb) @ _l2norm(state.cls_w).T
-            ce = sharded_arc_margin_loss(cos, labels, 0, float(margin),
-                                         cfg.scale, cfg.easy_margin)
-            b = cos.shape[0]
-            loss = ce.sum() / b
-            grads = torch.autograd.grad(loss, list(params) + [state.cls_w])
+            with (bf16_parameters(state.model) if half
+                  else contextlib.nullcontext()):
+                emb = state.model(x.to(torch.bfloat16) if half else x)
+                cos = _l2norm(emb.float()) @ _l2norm(state.cls_w).T
+                ce = sharded_arc_margin_loss(cos, labels, 0, float(margin),
+                                             cfg.scale, cfg.easy_margin)
+                b = cos.shape[0]
+                loss = ce.sum() / b
+                grads = torch.autograd.grad(loss,
+                                            list(params) + [state.cls_w])
             with torch.no_grad():
                 top = cos.max(dim=-1).values
                 tgt = cos.gather(1, labels[:, None])[:, 0]

@@ -26,8 +26,6 @@ _PORT_PKG = "speaker3d_tpu_torch."
 # JAX modules a config can name that the port has not ported yet, and the
 # ROADMAP.md item that ports them
 NOT_PORTED = {
-    "speaker3d_tpu_torch.models.fsmn_vad": "M11b (--vad_exp_dir)",
-    "speaker3d_tpu_torch.models.segmentation": "M11b (--include_overlap)",
     "speaker3d_tpu_torch.models.face_detector": "M11b (video diarization)",
     "speaker3d_tpu_torch.models.sanm": "M11b (transcription), then train_para",
     "speaker3d_tpu_torch.models.ssl_heads": "M12 (SSL training)",

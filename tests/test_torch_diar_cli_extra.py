@@ -33,6 +33,7 @@ from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
 from speaker3d_tpu_torch.utils.fileio import write_wav
 from tests.test_torch_eres2netv2 import port_model
 from tests.test_torch_pipeline import COS_THR, MODEL_ID, SMALL_W24
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 

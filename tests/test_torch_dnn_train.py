@@ -17,6 +17,7 @@ import torch
 import yaml
 
 from tests import fsmn_experiments as fx
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from speaker3d_tpu.data import dataset as jdata
 from speaker3d_tpu.data import dataset_seg as jds_seg
 from speaker3d_tpu.data import dataset_vad as jds_vad

@@ -487,13 +487,15 @@ TRAIN_ARGS = dict(feat_dim=80, embedding_size=192, base_width=26, scale=2,
                   expansion=2)
 
 
-def _train_step_on_the_card(cuda, feature_fn, remat):
+def _train_step_on_the_card(cuda, feature_fn, remat,
+                            compute_dtype="float32"):
     from speaker3d_tpu_torch.train import sv_train
 
     torch.manual_seed(3)
     model = ERes2NetV2(**TRAIN_ARGS)
     cfg = sv_train.SVTrainConfig(num_classes=24, remat=remat,
-                                 step_per_epoch=10)
+                                 step_per_epoch=10,
+                                 compute_dtype=compute_dtype)
     state = sv_train.init_sv_train_state(model, cfg, seed=3, device=cuda)
     step = sv_train.make_sv_train_step(model, cfg, feature_fn=feature_fn)
     rng = np.random.default_rng(3)
@@ -544,6 +546,60 @@ def test_train_step_with_remat_equals_without_on_the_card(cuda):
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(r_sd[k], sd[k], rtol=1e-5, atol=1e-5)
     assert int(r_sd["layer1.0.bn1.num_batches_tracked"]) == 1
+
+
+def test_bf16_train_step_against_the_fp32_step_on_the_card(cuda):
+    """One bf16 step of the 17.8M model (cuDNN's bf16 convolutions, K1 in
+    fp32 before the cast) against its fp32 step from the same state and
+    batch: one K1 launch, fp32 masters and statistics, the loss within 5%,
+    the embedding layer's update at cosine >= 0.9 with the fp32 step's
+    (0.993 on the CPU). The early layers' gradients cross the whole bf16
+    trunk backwards and decorrelate on these random weights (the CPU: conv1
+    0.03; the H100: median over tensors ~0), so they are not held."""
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device=cuda)
+    loss, sd, _ = _train_step_on_the_card(cuda, fb, False)
+    h_loss, h_sd, h_n = _train_step_on_the_card(cuda, fb, False, "bfloat16")
+    assert h_n == 1 and np.isfinite(h_loss)
+    assert h_loss == pytest.approx(loss, rel=0.05)
+    assert all(v.dtype in (torch.float32, torch.int64) for v in h_sd.values())
+    torch.manual_seed(3)
+    start = ERes2NetV2(**TRAIN_ARGS).state_dict()["seg_1.weight"].to(cuda)
+    u = (h_sd["seg_1.weight"] - start).flatten().double()
+    w = (sd["seg_1.weight"] - start).flatten().double()
+    assert float(u @ w / (u.norm() * w.norm())) >= 0.9
+
+
+def test_bn_bf16_input_on_the_card(cuda):
+    """A bf16 step's BatchNorm call on the card (bf16 input, the bf16 casts
+    of the weights taken up to fp32, fp32 statistics): a bf16 output within
+    one bf16 step of the fp32 normalisation of the same values, the running
+    statistics as Flax's update of the bf16 input, in float64, to 1e-6."""
+    from speaker3d_tpu_torch.models.common import batch_norm2d
+    from speaker3d_tpu_torch.train.sv_train import bf16_parameters
+
+    torch.manual_seed(0)
+    layer = batch_norm2d(32).to(cuda).train()
+    with torch.no_grad():
+        layer.weight.uniform_(0.5, 1.5)
+        layer.bias.normal_(0.0, 0.1)
+    x = (torch.randn(16, 32, 40, 75, device=cuda) * 2.5 + 0.7).bfloat16()
+    want_mean = 0.99 * layer.running_mean.double() + 0.01 * x.double().mean(
+        (0, 2, 3))
+    want_var = 0.99 * layer.running_var.double() + 0.01 * x.double().var(
+        (0, 2, 3), unbiased=False)
+    ref = torch.nn.functional.batch_norm(
+        x.float(), None, None, layer.weight.bfloat16().float(),
+        layer.bias.bfloat16().float(), True, 0.0, layer.eps).detach()
+    with bf16_parameters(layer):
+        out = layer(x)
+    assert out.dtype == torch.bfloat16
+    assert layer.running_mean.dtype == layer.running_var.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=2.0 ** -8 * float(ref.abs().max()))
+    torch.testing.assert_close(layer.running_mean.double(), want_mean,
+                               rtol=0, atol=1e-6)
+    torch.testing.assert_close(layer.running_var.double(), want_var,
+                               rtol=0, atol=1e-6)
 
 
 def test_device_prefetch_copies_batches_to_the_card(cuda):

@@ -58,8 +58,8 @@ def test_every_config_model_maps_to_the_port():
         specs = [v for v in cfg.values() if isinstance(v, dict) and "obj" in v]
         for spec in specs:
             obj = spec["obj"]
-            if obj.split(".")[-2] in ("sanm", "fsmn_vad", "segmentation",
-                                      "face_detector", "ssl_heads", "talknet"):
+            if obj.split(".")[-2] in ("sanm", "face_detector", "ssl_heads",
+                                      "talknet"):
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     tb.dynamic_import(obj)
                 continue
@@ -72,6 +72,17 @@ def test_every_config_model_maps_to_the_port():
     assert seen >= 9
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.dynamic_import("speaker3d_tpu.models.eres2netv2.NoSuchNet")
+
+
+@pytest.mark.parametrize("obj", ["speaker3d_tpu.models.fsmn_vad.FSMNVad",
+                                 "speaker3d_tpu.models.segmentation.FSMNSegmenter"])
+def test_fsmn_models_map_to_the_port(obj):
+    """The JAX builder returns these classes; the port's returns its own."""
+    cls = tb.dynamic_import(obj)
+    assert cls.__module__ == tb.port_path(obj).rsplit(".", 1)[0]
+    assert cls.__module__ in ("speaker3d_tpu_torch.models.fsmn_vad",
+                              "speaker3d_tpu_torch.models.segmentation")
+    assert cls.__name__ == obj.rsplit(".", 1)[1]
 
 
 def test_builder_builds_nested_specs_and_references():
