@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's diarization (every clustering type, and
 the DNN front end), speaker-verification, serving, analysis and training
-paths (the SV, VAD and segmenter trainers), every registry backbone and the
-recipe backbones, on one GPU.
+paths (the SV, VAD, segmenter and CTC ASR trainers), speaker-attributed
+transcription, label prediction, every registry backbone and the recipe
+backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -141,14 +142,36 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     step (loss relative difference, the cosine of the embedding layer's
     update; the first conv's and the median over tensors printed), and with
     remat against without (loss, running statistics), the state left in
-    fp32.
+    fp32;
+17. transcription and label prediction: ``cli.train_asr_ctc`` in a process
+    of its own on ``configs/asr_ctc.yaml`` as shipped (SAN-M d_model 256,
+    6 layers, batch 32 of 6 s) but for the paths and the cuts (192 seeded
+    utterances of tone words, 4 epochs; printed): ms a step, samples/s,
+    data-wait share, peak memory, launches (K1 once a step and once per
+    CMVN utterance); one step at B = 32 from the same weights and batch
+    through K1 against the plain fbank and against the CPU's plain step
+    (loss, parameters, first moments); ``tests/test_asr_ctc.py``'s recipe
+    (d_model 32, 60 epochs) trained on the card, its transcriber on 8
+    held-out utterances (at least one exact, word spans within 0.15 s) and
+    on a 9 s recording through K1 against the plain fbank (identical
+    tokens and timestamps, logits within 1e-4); the shipped-width
+    experiment decoding the recording in 6 s windows;
+    ``transcribe_diarization --asr_exp_dir`` on a two-speaker conversation
+    with a hand-written RTTM (each speaker's words attributed to them) and
+    on the RTTM the diarization CLI writes for it (w24s4ep4 on random
+    weights: a chain check); ``predict_label`` on the experiments of items
+    14 (17.8M: K1 and K2) and 16 (CAM++), each prediction against the
+    plain functions' argmax on the card and the accuracy line printed. K1
+    (item 7) is also held at [32, 96000], [1, 96000], [16, 48000] and [1,
+    48000].
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
 diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
-front-end and VAD/segmenter training runs (``launches_by_path`` apart).
+front-end, VAD/segmenter training, transcription, CTC training and
+``predict_label`` runs (``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -853,6 +876,13 @@ def _counted(fn) -> tuple:
     fn()
     torch.cuda.synchronize()
     return fk.fbank_features.launches, rk.res2_block.launches
+
+
+def _counted_result(fn) -> tuple:
+    """(``fn()``, K1 launches, K2 launches), counted as ``_counted``."""
+    box = []
+    k1, k2 = _counted(lambda: box.append(fn()))
+    return box[0], k1, k2
 
 
 def _min_cosine(got: dict, want: dict, what: str) -> float:
@@ -2054,6 +2084,7 @@ def phase_train_bf16(corpus: tuple, smi: str) -> dict:
         f"(<= {BF16_REMAT_TOL}); peak GiB {checks['peak_gib']}")
     return {"k1": sum(r["k1"] for r in runs.values()),
             "k2": sum(r["k2"] for r in runs.values()),
+            "exps": {k: r["exp"] for k, r in runs.items()},
             "stats": {"runs": {k: {x: y for x, y in r.items() if x != "exp"}
                                for k, r in runs.items()},
                       "step_checks": checks}}
@@ -2467,6 +2498,556 @@ def dnn_front_k1_share(k1: dict, dnn: dict) -> None:
     dnn["k1_share"] = share
 
 
+# speaker-attributed transcription (egs/3dspeaker/speaker-diarization/
+# run_audio.sh stage 3) and predict_label (the last stage of
+# egs/3dspeaker/language-identification/run.sh): the CTC trainer on
+# configs/asr_ctc.yaml as shipped (cut: ASR_UTTS utterances, ASR_EPOCHS
+# epochs), tests/test_asr_ctc.py's recipe trained and decoded, the
+# attribution CLI, predict_label on the SV experiments of phase_train and
+# phase_train_bf16
+ASR_CONFIG = os.path.join("configs", "asr_ctc.yaml")
+# tests/test_asr_ctc.py's words: tones of 0.4 s, jittered gaps
+ASR_WORD_F0 = {"bip": 400.0, "bop": 900.0, "beep": 1800.0}
+ASR_WORD_S, ASR_GAP_S = 0.4, 0.25
+ASR_CROP = 6 * FS                 # the config's wav_len
+ASR_BATCH = 32                    # the config's batch_size
+ASR_UTTS, ASR_EPOCHS = 192, 4     # 6 steps an epoch (the config: 60 epochs)
+ASR_CMVN_UTTS = 64                # the trainer's CMVN: one K1 launch each
+# tests/test_asr_ctc.py's recipe (the JAX package decodes 8/8 held-out
+# utterances exactly with it)
+ASR_RECIPE = {"sample_rate": FS, "wav_len": 3.0, "batch_size": 16,
+              "num_epoch": 60, "max_lr": 5e-3, "warmup_epoch": 3,
+              "model": {"args": {"feat_dim": 80, "d_model": 32,
+                                 "num_heads": 2, "ffn_dim": 64,
+                                 "num_layers": 2, "kernel_size": 7}}}
+ASR_RECIPE_UTTS, ASR_HELD_OUT = 160, 8
+ASR_TS_TOL_S = 0.15               # a word's span within 0.15 s of the truth
+ASR_LOGIT_TOL = 1e-4              # decode logits through K1 against plain
+# one B = 32 step at the config's width from one state and batch: through
+# K1 against the plain fbank on the card, and the card's (K1) against the
+# CPU's (plain fbank): the loss (rtol), the parameters after the step (max
+# abs; Adam's first step moves each by about lr = min_lr = 1e-5), the first
+# moments (the gradient / 10; max abs over each tensor's largest entry)
+ASR_STEP_TOL = {"loss_rel": 1e-3, "param_max_abs": 1e-3,
+                "moment_rel": 1e-2}
+PREDICT_UTTS = 8                  # predict_label's wav.scp: the train corpus'
+
+
+def asr_utterance(words, rng, total_s: float) -> tuple:
+    """tests/test_asr_ctc.py's utterance: each word a 0.4 s tone with
+    on/offset ramps at its pitch (1% jitter), jittered gaps, low noise;
+    (wav, [(start s, end s) per word])."""
+    wav = 0.002 * rng.standard_normal(int(total_s * FS)).astype(np.float32)
+    times = []
+    t = 0.1 + 0.15 * rng.random()
+    n = int(ASR_WORD_S * FS)
+    tt = np.arange(n) / FS
+    env = np.minimum(1.0, 10 * np.minimum(tt, tt[-1] - tt))
+    for w in words:
+        f0 = ASR_WORD_F0[w] * (1 + 0.01 * rng.standard_normal())
+        piece = (0.4 * env * np.sin(2 * np.pi * f0 * tt)
+                 + 0.003 * rng.standard_normal(n)).astype(np.float32)
+        s0 = int(t * FS)
+        wav[s0:s0 + n] += piece
+        times.append((t, t + ASR_WORD_S))
+        t += ASR_WORD_S + ASR_GAP_S * (0.6 + 0.8 * rng.random())
+    return wav, times
+
+
+def asr_corpus(folder: str, n: int, total_s: float, max_words: int,
+               seed: int) -> str:
+    """An ``ID,wav,text`` CSV of ``n`` seeded utterances of 2..max_words
+    words; returns its path."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    vocab = list(ASR_WORD_F0)
+    os.makedirs(os.path.join(folder, "wav"))
+    csv = os.path.join(folder, "train.csv")
+    with open(csv, "w") as f:
+        f.write("ID,wav,text\n")
+        for i in range(n):
+            words = [vocab[j] for j in rng.integers(0, 3, rng.integers(
+                2, max_words + 1))]
+            path = os.path.join(folder, "wav", f"a{i}.wav")
+            write_wav(path, asr_utterance(words, rng, total_s)[0], FS)
+            f.write(f"a{i},{path},{' '.join(words)}\n")
+    return csv
+
+
+def _asr_train_process(folder: str, csv: str) -> dict:
+    """cli.train_asr_ctc on configs/asr_ctc.yaml as shipped, in a process
+    of its own, overriding the paths and the epochs."""
+    exp = os.path.join(folder, "exp_shipped")
+    argv = ["--config", ASR_CONFIG, f"--exp_dir={exp}", f"--data={csv}",
+            f"--num_epoch={ASR_EPOCHS}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN_RUNNER,
+         "speaker3d_tpu_torch.cli.train_asr_ctc"] + argv, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli.train_asr_ctc failed (rc "
+                             f"{out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    epochs = re.findall(_EPOCH_LINE, out.stdout)
+    counts = re.search(r"\[train launches\] (\{.*\})", out.stdout)
+    if len(epochs) != ASR_EPOCHS or counts is None:
+        raise AssertionError(f"cli.train_asr_ctc printed {len(epochs)} of "
+                             f"{ASR_EPOCHS} epoch summaries:\n"
+                             f"{out.stdout[-3000:]}")
+    counts = json.loads(counts.group(1))
+    steps = sum(int(e[1]) for e in epochs)
+    with open(os.path.join(exp, "train_epoch.log")) as f:
+        losses = [float(x) for x in re.findall(r"avg_loss: ([-\d.e]+)",
+                                               f.read())]
+    last = epochs[-1]
+    run = {"exp": exp, "epochs": len(epochs), "steps": steps,
+           "batch": int(last[2]), "step_ms_median_last_epoch": float(last[3]),
+           "first_step_ms": float(epochs[0][4]),
+           "samples_per_s_last_epoch": float(last[5]),
+           "data_wait_share": (sum(float(e[6]) for e in epochs)
+                               / sum(float(e[7]) for e in epochs)),
+           "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
+           "k1": counts["k1"], "k2": counts["k2"], "avg_loss": losses,
+           "process_wall_s": wall}
+    cmvn = min(ASR_UTTS, ASR_CMVN_UTTS)
+    if not (counts["k1"] == steps + cmvn and counts["k2"] == 0
+            and run["batch"] == ASR_BATCH and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"cli.train_asr_ctc: launches K1 {counts['k1']}"
+                             f" K2 {counts['k2']} for {steps} steps and "
+                             f"{cmvn} CMVN utterances (want one each), batch "
+                             f"{run['batch']}, losses {losses}")
+    return run
+
+
+def _ctc_step_results(base, cfg, batch, feature_fn, device) -> tuple:
+    """(loss, state_dict, first moments, K1 launches) of one Adam step of a
+    copy of ``base`` on ``device``."""
+    import copy
+
+    import torch
+
+    from speaker3d_tpu_torch.asr.ctc import make_ctc_train_step
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+
+    state = init_adam_train_state(copy.deepcopy(base), device)
+    launches = fk.fbank_features.launches
+    metrics = make_ctc_train_step(cfg, feature_fn=feature_fn)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return (float(metrics["loss"]),
+            {k: v.cpu() for k, v in state.model.state_dict().items()},
+            {k: v.cpu() for k, v in state.adam_m.items()},
+            fk.fbank_features.launches - launches)
+
+
+def _asr_step_checks(csv: str) -> dict:
+    """One B = 32 step at configs/asr_ctc.yaml's width from one state and
+    batch: through K1 against the plain fbank on the card, and on the card
+    against the plain step on the CPU."""
+    import torch
+
+    from speaker3d_tpu_torch.asr.ctc import (
+        CTCTrainConfig, SANMCTC, init_sanm_ctc_)
+    from speaker3d_tpu_torch.cli.train_asr_ctc import (
+        build_vocab, ctc_batches, global_cmvn)
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+    from speaker3d_tpu_torch.utils.config import build_config
+    from speaker3d_tpu_torch.utils.fileio import load_data_csv
+
+    config = build_config(os.path.join(ROOT, ASR_CONFIG))
+    rows = load_data_csv(csv)
+    vocab = build_vocab(rows)
+    tok2id = {t: i + 1 for i, t in enumerate(vocab)}
+    batch = next(ctc_batches(rows, tok2id, batch_size=ASR_BATCH,
+                             wav_len=ASR_CROP, sample_rate=FS, seed=0,
+                             epoch=1))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    fbs = {d: KaldiFbank(FbankConfig(), mean_norm=False, device=d)
+           for d in ("cuda", "cpu")}
+    cmvn = global_cmvn(rows, fbs["cuda"], wav_len=ASR_CROP, sample_rate=FS)
+    base = init_sanm_ctc_(SANMCTC(vocab_size=len(vocab),
+                                  **config["model"]["args"]),
+                          torch.Generator().manual_seed(5))
+    cfg = CTCTrainConfig(step_per_epoch=6)
+
+    def features(dev, plain):
+        fb, c = fbs[dev], torch.as_tensor(cmvn, device=dev)
+
+        def fn(wav):
+            feats = fk.fbank_plain(wav, fb._B, fb._mel,
+                                   frame_length=fb.cfg.frame_length,
+                                   frame_shift=fb.cfg.frame_shift) \
+                if plain else fb(wav)
+            return (feats - c[0]) / c[1]
+        return fn
+
+    got = {"k1": _ctc_step_results(base, cfg, batch, features("cuda", False),
+                                   "cuda"),
+           "plain": _ctc_step_results(base, cfg, batch,
+                                      features("cuda", True), "cuda"),
+           "cpu": _ctc_step_results(base, cfg, batch, features("cpu", False),
+                                    "cpu")}
+    if [v[3] for v in got.values()] != [1, 0, 0]:
+        raise AssertionError(f"CTC step launches K1 "
+                             f"{[v[3] for v in got.values()]}; want 1, 0, 0")
+    d = config["model"]["args"]["d_model"]
+
+    def moments(m):
+        # the key third of each linear_q_k_v bias: a zero gradient (the
+        # softmax removes a constant over the keys) but for rounding
+        return {k: (torch.cat([v[:d], v[2 * d:]]) if k.endswith(
+            "linear_q_k_v.bias") else v) for k, v in m.items()}
+
+    out = {"batch": list(batch["wavs"].shape), "loss": got["k1"][0]}
+    loss, sd, mom, _ = got["k1"]
+    for other in ("plain", "cpu"):
+        o_loss, o_sd, o_mom, _ = got[other]
+        a, b = moments(mom), moments(o_mom)
+        res = {"loss_rel": abs(loss - o_loss) / abs(o_loss),
+               "param_max_abs": max(float((sd[k] - o_sd[k]).abs().max())
+                                    for k in sd),
+               "moment_rel": max(float((a[k] - b[k]).abs().max()
+                                       / b[k].abs().max().clamp(min=1e-30))
+                                 for k in b)}
+        out[f"k1_vs_{other}"] = res
+        if not (np.isfinite(loss) and all(res[k] <= ASR_STEP_TOL[k]
+                                          for k in res)):
+            raise AssertionError(f"CTC step on the card (K1) vs {other}: "
+                                 f"{res}; tolerances {ASR_STEP_TOL}")
+    return out
+
+
+def _decode_held_out(exp: str) -> dict:
+    """ASR_HELD_OUT seeded utterances of 2-4 words (3 s) through the
+    transcriber on the card: how many decode to their words exactly, and
+    the furthest word span of those from its true span."""
+    from speaker3d_tpu_torch.asr.ctc import CTCTranscriber
+
+    tr = CTCTranscriber(exp, device="cuda")
+    rng = np.random.default_rng(99)
+    vocab = list(ASR_WORD_F0)
+    exact, worst, decoded = 0, 0.0, []
+    for _ in range(ASR_HELD_OUT):
+        words = [vocab[j] for j in rng.integers(0, 3, rng.integers(2, 5))]
+        wav, times = asr_utterance(words, rng, 3.0)
+        res = tr.transcribe(wav)
+        decoded.append((" ".join(words), res["raw_text"]))
+        if res["raw_text"].split() == words:
+            exact += 1
+            worst = max([worst] + [max(t0 - st, ed - t1) for (st, ed), (t0, t1)
+                                   in zip(res["timestamp"], times)])
+    if not (exact >= 1 and worst < ASR_TS_TOL_S):
+        raise AssertionError(f"held-out decoding: {exact} of {ASR_HELD_OUT} "
+                             f"exact, word spans up to {worst:.3f} s off "
+                             f"(want >= 1 exact, < {ASR_TS_TOL_S} s): "
+                             f"{decoded}")
+    return {"exact": exact, "of": ASR_HELD_OUT, "worst_span_s": worst,
+            "decoded": decoded}
+
+
+def _asr_recording() -> tuple:
+    """9 s: three held-out-style utterances of 3 s, and their words."""
+    rng = np.random.default_rng(123)
+    said = (["bip", "bop"], ["beep", "bip", "bop"], ["bop", "beep"])
+    return np.concatenate([asr_utterance(w, rng, 3.0)[0] for w in said]), [
+        w for ws in said for w in ws]
+
+
+def _decode_held_against_plain(exp: str) -> dict:
+    """The 9 s recording through the transcriber with K1 and with the plain
+    fbank on the card: identical tokens and timestamps, every window's
+    logits within ASR_LOGIT_TOL."""
+    from speaker3d_tpu_torch.asr.ctc import CTCTranscriber
+    from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
+
+    tr = CTCTranscriber(exp, device="cuda")
+    wav, words = _asr_recording()
+    win = int(tr.window_s * FS)
+    step = win - int(tr.overlap_s * FS)
+    pieces = [np.pad(wav[s:s + win], (0, max(0, s + win - len(wav))))
+              for s in range(0, len(wav) - int(tr.overlap_s * FS), step)]
+    got = tr.transcribe(wav)
+    got_logits = [tr.logits(p).cpu().numpy() for p in pieces]
+    fb = tr.fbank
+    tr.fbank = lambda w: fk.fbank_plain(w, fb._B, fb._mel,
+                                        frame_length=fb.cfg.frame_length,
+                                        frame_shift=fb.cfg.frame_shift)
+    want = tr.transcribe(wav)
+    want_logits = [tr.logits(p).cpu().numpy() for p in pieces]
+    tr.fbank = fb
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got_logits,
+                                                          want_logits))
+    if not (got == want and diff <= ASR_LOGIT_TOL
+            and all(np.isfinite(a).all() for a in got_logits)):
+        raise AssertionError(f"transcriber through K1 vs plain: {got} vs "
+                             f"{want}, logits max abs {diff:.3g} (<= "
+                             f"{ASR_LOGIT_TOL:g})")
+    return {"windows": len(pieces), "logits_max_abs": diff,
+            "raw_text": got["raw_text"], "said": " ".join(words),
+            "exact": got["raw_text"].split() == words}
+
+
+def _attribution(folder: str, exp: str, models: str) -> dict:
+    """transcribe_diarization --asr_exp_dir on a two-speaker conversation:
+    with a hand-written RTTM (each speaker's words attributed to them, as
+    tests/test_asr_ctc.py's end-to-end test), then on the RTTM the port's
+    diarization CLI writes for the same wav (w24s4ep4 on random weights:
+    a chain check only)."""
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import (
+        infer_diarization, transcribe_diarization)
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(5)
+    wav_a, _ = asr_utterance(["bip", "bop"], rng, 1.6)
+    wav_b, _ = asr_utterance(["beep", "bip"], rng, 1.6)
+    wav = np.concatenate([wav_a, np.zeros(int(0.5 * FS), np.float32), wav_b])
+    wav_dir = os.path.join(folder, "conv")
+    rttm_dir = os.path.join(folder, "conv_rttm")
+    os.makedirs(wav_dir)
+    os.makedirs(rttm_dir)
+    wav_path = os.path.join(wav_dir, "conv.wav")
+    write_wav(wav_path, wav, FS)
+    with open(os.path.join(rttm_dir, "conv.rttm"), "w") as f:
+        f.write("SPEAKER conv 0 0.000 1.600 <NA> <NA> spkA <NA> <NA>\n")
+        f.write("SPEAKER conv 0 2.100 1.600 <NA> <NA> spkB <NA> <NA>\n")
+
+    def attribute(rttm, out_dir):
+        with contextlib.redirect_stdout(io.StringIO()):
+            transcribe_diarization.main(
+                ["--rttm_dir", rttm, "--asr_exp_dir", exp, "--wav_dir",
+                 wav_dir, "--out_dir", out_dir])
+        with open(os.path.join(out_dir, "conv.txt")) as f:
+            return f.read().splitlines()
+
+    lines = attribute(rttm_dir, os.path.join(folder, "trans"))
+    by_spk = {}
+    for ln in lines:
+        by_spk.setdefault(ln.split(":")[0], []).append(
+            ln.split("]", 1)[1].strip().rstrip("."))
+    if not ("bip bop" in " ".join(by_spk.get("spkA", []))
+            and "beep bip" in " ".join(by_spk.get("spkB", []))):
+        raise AssertionError(f"attribution with the hand-written RTTM: "
+                             f"{lines}")
+    diar_dir = os.path.join(folder, "conv_diar")
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer_diarization.main(["--wav", wav_path, "--out_dir", diar_dir,
+                                "--model_id", MODEL_W24, "--local_model_dir",
+                                models])
+    with open(os.path.join(diar_dir, "conv.rttm")) as f:
+        speakers = {ln.split()[7] for ln in f if ln.strip()}
+    chained = attribute(diar_dir, os.path.join(folder, "trans_diar"))
+    words = [w for ln in lines for w in ln.split("]", 1)[1].strip().rstrip(
+        ".").split()]
+    chain_words = [w for ln in chained for w in ln.split("]", 1)[1].strip(
+        ).rstrip(".").split()]
+    if not (chained and chain_words == words
+            and {ln.split(":")[0] for ln in chained} <= speakers):
+        raise AssertionError(f"attribution on the diarization CLI's RTTM "
+                             f"(speakers {sorted(speakers)}): {chained}; "
+                             f"the hand-written RTTM's: {lines}")
+    return {"lines": lines, "diarization_speakers": sorted(speakers),
+            "chained_lines": chained}
+
+
+def _predict(exp: str, scp: str, utt2label: str, out: str) -> dict:
+    """predict_label on the card (launches counted), and each prediction
+    against the argmax of the plain functions' embedding on the card; a
+    prediction that differs must lie within the two paths' cosine
+    difference of a tie."""
+    import contextlib
+    import io
+
+    import torch
+
+    from speaker3d_tpu_torch.cli import predict_label
+    from speaker3d_tpu_torch.cli.extract import build_model_from_exp
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+    from speaker3d_tpu_torch.utils.fileio import load_audio, load_wav_scp
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        k1, k2 = _counted(lambda: predict_label.main(
+            ["--exp_dir", exp, "--data", scp, "--utt2label", utt2label,
+             "--out", out]))
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        got = dict(line.split() for line in f)
+    model = build_model_from_exp(exp)[0].cuda()
+    plain = _plain_fn(model, KaldiFbank(FbankConfig(), device="cuda"))
+    wn, ind2lab = predict_label.load_classifier(exp)
+    lab2ind = {v: k for k, v in ind2lab.items()}
+    flips = []
+    for utt, path in load_wav_scp(scp).items():
+        emb = plain(load_audio(path, obj_fs=FS))[0].cpu().numpy()
+        cos = wn @ (emb / np.linalg.norm(emb))
+        want = ind2lab[int(np.argmax(cos))]
+        if got[utt] != want:
+            flips.append(float(cos.max() - cos[lab2ind[got[utt]]]))
+    del model
+    torch.cuda.empty_cache()
+    line = printed.getvalue().strip().splitlines()[-1]
+    if not (line.startswith("accuracy: ") and k1 == len(got)
+            and all(f <= 1e-4 for f in flips)):
+        raise AssertionError(f"predict_label {exp}: '{line}', launches K1 "
+                             f"{k1} for {len(got)} wavs, predictions off "
+                             f"the plain argmax by {flips}")
+    return {"accuracy_line": line, "k1": k1, "k2": k2, "wall_s": wall,
+            "flipped": len(flips)}
+
+
+def phase_asr(work: str, models: str, train: dict, train16: dict,
+              smi: str) -> dict:
+    """The CTC trainer at the shipped width, the test recipe trained and
+    decoded on the card, speaker-attributed transcription, predict_label."""
+    import contextlib
+    import io
+
+    import torch
+    import yaml
+
+    from speaker3d_tpu_torch.asr.ctc import CTCTranscriber
+    from speaker3d_tpu_torch.cli import train_asr_ctc
+    from speaker3d_tpu_torch.utils.fileio import load_data_csv
+
+    folder = os.path.join(work, "asr")
+    t_phase = time.perf_counter()
+    csv = asr_corpus(os.path.join(folder, "shipped"), ASR_UTTS, 6.0, 7, 500)
+    run = _asr_train_process(folder, csv)
+    log(f"[asr train] {smi}: cli.train_asr_ctc on {ASR_CONFIG} as shipped "
+        f"(d_model 256, 6 layers; CUT: {ASR_UTTS} seeded 6 s utterances, "
+        f"{ASR_EPOCHS} epochs, not 60), {run['steps']} steps of "
+        f"{run['batch']}: step {run['step_ms_median_last_epoch']:.2f} ms "
+        f"(median of the last epoch, CUDA events; the first "
+        f"{run['first_step_ms']:.1f}), {run['samples_per_s_last_epoch']:.1f} "
+        f"samples/s, data wait {run['data_wait_share']:.1%} of the epochs, "
+        f"max_memory_allocated {run['max_memory_allocated_gib']:.3f} GiB; "
+        f"launches K1 {run['k1']} ({run['steps']} steps + "
+        f"{min(ASR_UTTS, ASR_CMVN_UTTS)} CMVN utterances) K2 {run['k2']}; "
+        f"avg_loss by epoch {[round(x, 4) for x in run['avg_loss']]}; the "
+        f"process {run['process_wall_s']:.1f} s")
+    checks = _asr_step_checks(csv)
+    log(f"[asr train step {checks['batch']}] loss {checks['loss']:.5f}; "
+        f"through K1 vs the plain fbank {checks['k1_vs_plain']}; on the card "
+        f"(K1) vs the CPU's plain step {checks['k1_vs_cpu']} (tolerances "
+        f"{ASR_STEP_TOL})")
+
+    # the test recipe, trained in this process on the card
+    recipe_csv = asr_corpus(os.path.join(folder, "recipe"), ASR_RECIPE_UTTS,
+                            3.0, 4, 7)
+    exp = os.path.join(folder, "exp_recipe")
+    cfg_path = os.path.join(folder, "recipe.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"exp_dir": exp, "data": recipe_csv, **ASR_RECIPE}, f)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        recipe_k1, _ = _counted(lambda: train_asr_ctc.main(
+            ["--config", cfg_path]))
+    recipe_s = time.perf_counter() - t0
+    epochs = re.findall(_EPOCH_LINE, printed.getvalue())
+    with open(os.path.join(exp, "train_epoch.log")) as f:
+        losses = [float(x) for x in re.findall(r"avg_loss: ([-\d.e]+)",
+                                               f.read())]
+    steps = sum(int(e[1]) for e in epochs)
+    if recipe_k1 != steps + ASR_CMVN_UTTS or not losses[-1] < 0.3 * losses[0]:
+        raise AssertionError(f"the test recipe: K1 {recipe_k1} for {steps} "
+                             f"steps, losses {losses[0]} -> {losses[-1]}")
+    log(f"[asr recipe] tests/test_asr_ctc.py's recipe (d_model 32, 2 layers, "
+        f"{ASR_RECIPE_UTTS} utterances of 3 s, 60 epochs) trained on the card "
+        f"in {recipe_s:.1f} s: {steps} steps, step "
+        f"{float(epochs[-1][3]):.2f} ms (median of the last epoch), avg_loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K1 {recipe_k1}")
+    decode_k1 = {}
+    t0 = time.perf_counter()
+    held, decode_k1["held_out"], _ = _counted_result(
+        lambda: _decode_held_out(exp))
+    held_s = time.perf_counter() - t0
+    log(f"[asr decode] {held['exact']} of {held['of']} held-out utterances "
+        f"decoded exactly (the JAX test asserts one), word spans within "
+        f"{held['worst_span_s']:.3f} s of the truth (< {ASR_TS_TOL_S}); "
+        f"K1 {decode_k1['held_out']} ({held_s:.2f} s); {held['decoded']}")
+    against = _decode_held_against_plain(exp)
+    log(f"[asr decode 9 s] {against['windows']} windows through K1 vs the "
+        f"plain fbank: identical tokens and timestamps, logits max abs "
+        f"{against['logits_max_abs']:.3g} (<= {ASR_LOGIT_TOL:g}); decoded "
+        f"'{against['raw_text']}' (said '{against['said']}', exact "
+        f"{against['exact']})")
+    # the shipped-width experiment decodes in 6 s windows ([1, 96000])
+    wav9, _ = _asr_recording()
+    shipped = CTCTranscriber(run["exp"], device="cuda")
+    shipped_res, decode_k1["shipped"], _ = _counted_result(
+        lambda: shipped.transcribe(wav9))
+    if decode_k1["shipped"] != 2:
+        raise AssertionError(f"the shipped-width transcriber: K1 "
+                             f"{decode_k1['shipped']} for 9 s; want 2 windows")
+    log(f"[asr decode shipped] {ASR_CONFIG} after {ASR_EPOCHS} epochs on the "
+        f"9 s recording: 2 windows of 6 s, K1 2; '{shipped_res['raw_text']}'")
+    del shipped
+    attr, *attr_k = _counted_result(
+        lambda: _attribution(folder, exp, models))
+    log(f"[asr attribution] hand-written RTTM: {attr['lines']}; on the "
+        f"diarization CLI's RTTM (w24s4ep4, random weights: speakers "
+        f"{attr['diarization_speakers']}, a chain check only): "
+        f"{attr['chained_lines']}; launches K1 {attr_k[0]} K2 {attr_k[1]}")
+
+    # predict_label on the 17.8M ERes2NetV2 (K1, K2) and CAM++ experiments
+    rows = list(load_data_csv(train["corpus"][1]).items())[:PREDICT_UTTS]
+    scp = os.path.join(folder, "predict.scp")
+    utt2label = os.path.join(folder, "utt2label")
+    with open(scp, "w") as f:
+        f.writelines(f"{utt} {r['wav']}\n" for utt, r in rows)
+    with open(utt2label, "w") as f:
+        f.writelines(f"{utt} {r['spk']}\n" for utt, r in rows)
+    predicted = {}
+    for tag, exp_dir, k2_per in (("eres2netv2_17.8M", train["stats"]["exp"],
+                                  7),
+                                 ("campplus", train16["exps"]["campplus"],
+                                  0)):
+        p = _predict(exp_dir, scp, utt2label,
+                     os.path.join(folder, f"predictions_{tag}.txt"))
+        if p["k2"] != k2_per * p["k1"]:
+            raise AssertionError(f"predict_label {tag}: K1 {p['k1']} K2 "
+                                 f"{p['k2']}; want K2 {k2_per} per wav")
+        predicted[tag] = p
+        log(f"[predict_label {tag}] {p['accuracy_line']} over "
+            f"{PREDICT_UTTS} of the SV trainer's utterances (its experiments "
+            f"trained 1 and 4 epochs); launches K1 {p['k1']} K2 {p['k2']}; "
+            f"{p['wall_s']:.2f} s; predictions equal to the plain functions' "
+            f"argmax "
+            f"({p['flipped']} within a tie)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[asr] the phase took {phase_s:.1f} s")
+    torch.cuda.empty_cache()
+    return {"k1": sum(decode_k1.values()) + attr_k[0], "k2": attr_k[1],
+            "train_k1": run["k1"] + recipe_k1,
+            "predict_k1": sum(p["k1"] for p in predicted.values()),
+            "predict_k2": sum(p["k2"] for p in predicted.values()),
+            # K1's shapes on this path: the shipped trainer's step and
+            # windows, the recipe's
+            "k1_shapes": [(ASR_BATCH, ASR_CROP), (1, ASR_CROP),
+                          (ASR_RECIPE["batch_size"], 3 * FS), (1, 3 * FS)],
+            "stats": {"train": {k: v for k, v in run.items() if k != "exp"},
+                      "step_checks": checks,
+                      "recipe": {"steps": steps, "losses": [losses[0],
+                                                            losses[-1]],
+                                 "train_s": recipe_s, "k1": recipe_k1},
+                      "held_out": held, "against_plain": against,
+                      "attribution": attr, "predict_label": predicted,
+                      "phase_s": phase_s}}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     device = phase_device()
@@ -2481,9 +3062,10 @@ def main() -> int:
         train = phase_train(work, sv, device["smi"])
         train16 = phase_train_bf16(train["corpus"], device["smi"])
         dnn = phase_dnn_front(work, pipe["models"], device["smi"])
+        asr = phase_asr(work, pipe["models"], train, train16, device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
-                  dnn["k1_shapes"])
+                  dnn["k1_shapes"] + asr["k1_shapes"])
     dnn_front_k1_share(k1, dnn)
     k2 = phase_k2(lengths, pipe["main_len"])
     k3 = phase_k3()
@@ -2501,7 +3083,11 @@ def main() -> int:
                                  "train_extract": train[f"extract_{key}"],
                                  "dnn_front": dnn[key],
                                  "dnn_train": dnn["train_k1"] if key == "k1"
-                                 else 0}
+                                 else 0,
+                                 "asr": asr[key],
+                                 "asr_train": asr["train_k1"] if key == "k1"
+                                 else 0,
+                                 "predict_label": asr[f"predict_{key}"]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -2514,7 +3100,8 @@ def main() -> int:
                               if k != "exp"},
                     "train_bf16": train16["stats"],
                     "dnn_front": {k: v for k, v in dnn.items()
-                                  if k not in ("k1", "k2", "train_k1")}}))
+                                  if k not in ("k1", "k2", "train_k1")},
+                    "asr": asr["stats"]}))
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

@@ -19,14 +19,15 @@ parameter (``CosineClassifier``) is already in torch layout and is copied
 as it is.
 
 ``flax_from_state_dict`` is the inverse for modules whose layer lists are
-Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter): the
-port's trainers write their checkpoints in the JAX trainers' layout with
-it.
+Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter, SAN-M's
+``encoders.{i}``), and whose other dotted Flax names are given as
+``joined`` (SAN-M's ``feed_forward.w_1``): the port's trainers write their
+checkpoints in the JAX trainers' layout with it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,25 +89,29 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     return out
 
 
-def _flax_module_path(parts):
+def _flax_module_path(parts, joined: Sequence[str] = ()):
     """['fsmn', '0', 'proj'] -> ['fsmn.0', 'proj']: an index joins the name
-    before it, as in the Flax submodule name ``fsmn.0``."""
+    before it, as in the Flax submodule name ``fsmn.0``; so does a name
+    that forms one of ``joined`` with it (['feed_forward', 'w_1'] ->
+    ['feed_forward.w_1'] when ``joined`` holds 'feed_forward.w_1')."""
     out = []
     for p in parts:
-        if p.isdigit() and out:
+        if out and (p.isdigit() or f"{out[-1]}.{p}" in joined):
             out[-1] = f"{out[-1]}.{p}"
         else:
             out.append(p)
     return out
 
 
-def flax_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
+def flax_from_state_dict(state_dict: Mapping[str, Any],
+                         joined: Sequence[str] = ()) -> dict:
     """A state_dict -> ``{'params'[, 'batch_stats']}`` as nested dicts of
     numpy arrays, the inverse of ``state_dict_from_flax``: a ``weight`` of
     1 dimension is a norm's ``scale``, of 2 a Dense kernel [I, O], of 3 a
     Conv kernel [k, I, O] and of 4 an HWIO kernel; ``running_mean`` and
     ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
-    dropped."""
+    dropped. ``joined``: the Flax submodule names that hold a dot besides
+    an index (a model's ``FLAX_JOINED_NAMES``)."""
     out: dict = {}
     for key, val in state_dict.items():
         *mods, leaf = key.split(".")
@@ -128,7 +133,7 @@ def flax_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
         elif leaf != "bias":
             raise KeyError(f"no flax mapping for torch leaf {key}")
         node = out.setdefault(coll, {})
-        for m in _flax_module_path(mods):
+        for m in _flax_module_path(mods, joined):
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(t)
     return out

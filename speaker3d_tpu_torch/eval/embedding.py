@@ -2,7 +2,8 @@
 
 The counterpart of ``speaker3d_tpu/eval/embedding.py``. The returned
 callable is the device hot path of diarization: PCM16 decode, the fbank
-kernel, mean-norm over time, the backbone, float32 out.
+kernel, mean-norm over time, the backbone, float32 out. ``build_feature_fn``
+is the fbank alone.
 """
 
 from __future__ import annotations
@@ -69,3 +70,21 @@ def build_embedding_fn(model: torch.nn.Module,
             return model(feats).to(torch.float32)
 
     return embed
+
+
+def build_feature_fn(*, sample_rate: int = 16000, num_mel_bins: int = 80,
+                     mean_norm: bool = True,
+                     device=DEFAULT_DEVICE) -> Callable:
+    """Return ``features(wav) -> log-mel [..., T, num_mel_bins]`` on
+    ``device`` (the fbank kernel on a card): ``wav`` [n] or [B, n] float32,
+    a tensor or array, moved to ``device`` if needed."""
+    dev = resolve_device(device)
+    fbank = KaldiFbank(FbankConfig(sample_rate=sample_rate,
+                                   num_mel_bins=num_mel_bins),
+                       mean_norm=mean_norm, device=dev)
+
+    def features(wav):
+        with torch.inference_mode():
+            return fbank(torch.as_tensor(wav, device=dev).to(torch.float32))
+
+    return features

@@ -19,9 +19,10 @@ from speaker3d_tpu_torch.train.vad_train import (
 SegTrainConfig = VadTrainConfig
 
 
-def seg_loss(logits, labels):
+def seg_loss(logits, batch):
     """(PIT BCE summed over the batch / B; the frame accuracy against the
     labels in the order the PIT chose, likewise)."""
+    labels = batch["labels"].to(torch.float32)
     b = logits.shape[0]
     per_ex, assignment = pit_bce(logits, labels)
     loss = per_ex.sum() / b

@@ -72,13 +72,15 @@ def init_adam_train_state(model: torch.nn.Module,
 
 def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
                          feature_fn: Optional[Callable] = None) -> Callable:
-    """``step(state, batch) -> {'loss', 'acc', 'lr'}``: one Adam step on
-    ``state`` in place. ``loss_fn(logits, labels) -> (loss, acc)``.
+    """``step(state, batch) -> {'loss'[, 'acc'], 'lr'}``: one Adam step on
+    ``state`` in place. ``loss_fn(logits, batch) -> (loss, acc or None)``
+    reads its targets from the batch (``labels``, and for CTC
+    ``label_lens``).
 
-    ``batch``: ``{'wavs': [B, L] float32, 'labels'}`` on the state's device
-    when ``feature_fn`` is given, else ``{'feats': [B, T, F], 'labels'}``.
-    ``loss`` and ``acc`` are 0-d tensors on the device (no host sync),
-    ``lr`` a 0-d float32 CPU tensor."""
+    ``batch``: ``{'wavs': [B, L] float32, 'labels', ...}`` on the state's
+    device when ``feature_fn`` is given, else ``{'feats': [B, T, F],
+    'labels', ...}``. ``loss`` and ``acc`` are 0-d tensors on the device
+    (no host sync), ``lr`` a 0-d float32 CPU tensor."""
     batch_key = "wavs" if feature_fn is not None else "feats"
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
 
@@ -93,12 +95,11 @@ def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
         bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
         with matmul_precision("float32"):
             x = batch[batch_key]
-            labels = batch["labels"].to(torch.float32)
             if feature_fn is not None:
                 x = feature_fn(x)
             state.model.train()
             names, params = zip(*state.model.named_parameters())
-            loss, acc = loss_fn(state.model(x), labels)
+            loss, acc = loss_fn(state.model(x), batch)
             params = list(params)
             grads = list(torch.autograd.grad(loss, params))
             with torch.no_grad():
@@ -116,14 +117,18 @@ def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
                 torch._foreach_div_(upd, denom)
                 torch._foreach_add_(params, upd, alpha=-float(lr))
         state.step += 1
-        return {"loss": loss.detach(), "acc": acc, "lr": lr}
+        metrics = {"loss": loss.detach(), "lr": lr}
+        if acc is not None:
+            metrics["acc"] = acc
+        return metrics
 
     return step
 
 
-def vad_loss(logits, labels):
+def vad_loss(logits, batch):
     """(mean over frames, summed over the batch / B, of the frame BCE; the
     frame accuracy likewise)."""
+    labels = batch["labels"].to(torch.float32)
     b = logits.shape[0]
     loss = bce_with_logits(logits, labels).mean(dim=-1).sum() / b
     with torch.no_grad():
@@ -140,11 +145,16 @@ def make_vad_train_step(cfg: VadTrainConfig,
 
 
 def state_tree(state: AdamTrainState) -> Dict:
-    """The JAX trainer's checkpoint tree of ``state`` (numpy arrays)."""
-    return {"params": flax_from_state_dict(
-                state.model.state_dict())["params"],
-            "adam_m": flax_from_state_dict(state.adam_m)["params"],
-            "adam_v": flax_from_state_dict(state.adam_v)["params"],
+    """The JAX trainer's checkpoint tree of ``state`` (numpy arrays); a
+    model's ``flax_joined_names`` are its dotted Flax names
+    (``compat/flax_convert.py``)."""
+    joined = getattr(state.model, "flax_joined_names", ())
+
+    def tree(sd):
+        return flax_from_state_dict(sd, joined)["params"]
+
+    return {"params": tree(state.model.state_dict()),
+            "adam_m": tree(state.adam_m), "adam_v": tree(state.adam_v),
             "step": np.asarray(state.step, np.int32)}
 
 

@@ -685,3 +685,178 @@ def test_fsmn_front_ends_run_k1_on_the_card(cuda):
         plain = probs(front)
         np.testing.assert_allclose(got, plain, rtol=0, atol=1e-3)
         np.testing.assert_allclose(got, on_cpu, rtol=0, atol=1e-3)
+
+
+# transcription and predict_label: configs/asr_ctc.yaml's width (d_model
+# 256, 6 layers, LFR 5/4) on 8 seeded 6 s tone crops
+ASR_ARGS = dict(feat_dim=80, d_model=256, num_heads=4, ffn_dim=1024,
+                num_layers=6, kernel_size=11, lfr_m=5, lfr_n=4)
+
+
+def _asr_batch(rng, b=8, n=96000, u=5, vocab=3):
+    t = np.arange(n) / 16000
+    f0 = rng.uniform(300, 1800, (b, 1))
+    wav = (0.3 * np.sin(2 * np.pi * f0 * t)
+           * (np.sin(2 * np.pi * rng.uniform(1, 3, (b, 1)) * t) > 0)
+           + 0.01 * rng.standard_normal((b, n))).astype(np.float32)
+    lens = rng.integers(1, u + 1, b).astype(np.int32)
+    labels = np.zeros((b, u), np.int32)
+    for i, k in enumerate(lens):
+        labels[i, :k] = rng.integers(1, vocab + 1, k)
+    return {"wavs": torch.from_numpy(wav), "labels": torch.from_numpy(labels),
+            "label_lens": torch.from_numpy(lens)}
+
+
+def test_ctc_train_step_on_the_card_matches_the_cpu_plain_step(cuda):
+    """One Adam step of the CTC model at the shipped width from one state
+    and batch: on the card through K1 (one launch) against the CPU's step
+    through the plain fbank: loss to rtol 1e-3, parameters to 1e-3, first
+    moments (the gradients / 10) to 1e-2 of each tensor's largest entry,
+    but the key third of each linear_q_k_v bias, whose gradient is zero but
+    for rounding (the softmax removes a constant over the keys)."""
+    import copy
+
+    from speaker3d_tpu_torch.asr import ctc
+    from speaker3d_tpu_torch.train import vad_train
+
+    base = ctc.init_sanm_ctc_(ctc.SANMCTC(vocab_size=3, **ASR_ARGS),
+                              torch.Generator().manual_seed(0))
+    batch = _asr_batch(np.random.default_rng(0))
+    out = {}
+    for dev in ("cpu", cuda):
+        fb = KaldiFbank(FbankConfig(), mean_norm=False, device=dev)
+        state = vad_train.init_adam_train_state(copy.deepcopy(base), dev)
+        step = ctc.make_ctc_train_step(ctc.CTCTrainConfig(step_per_epoch=10),
+                                       lambda w, fb=fb: fb(w) / 4.0 - 2.0)
+        launches = fk.fbank_features.launches
+        metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (float(metrics["loss"]),
+                         {k: v.cpu() for k, v in state.model.state_dict().items()},
+                         {k: v.cpu() for k, v in state.adam_m.items()},
+                         fk.fbank_features.launches - launches)
+    (c_loss, c_sd, c_m, c_n), (g_loss, g_sd, g_m, g_n) = out["cpu"], out["cuda"]
+    assert (c_n, g_n) == (0, 1)
+    assert np.isfinite(g_loss) and g_loss == pytest.approx(c_loss, rel=1e-3)
+    for k in c_sd:
+        torch.testing.assert_close(g_sd[k], c_sd[k], rtol=0, atol=1e-3)
+    d = ASR_ARGS["d_model"]
+    for k in c_m:
+        a, b = g_m[k], c_m[k]
+        if k.endswith("linear_q_k_v.bias"):
+            a, b = (torch.cat([x[:d], x[2 * d:]]) for x in (a, b))
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max()), k
+
+
+def _asr_exp(root, vocab=("bip", "bop", "beep")):
+    """A transcriber's experiment on seeded weights (the blank prior off,
+    so the argmax varies): config.yaml, vocab.json, cmvn.npy, models/."""
+    import json
+    import os
+
+    import yaml
+
+    from speaker3d_tpu_torch.asr import ctc
+    from speaker3d_tpu_torch.train import vad_train
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+
+    model = ctc.init_sanm_ctc_(ctc.SANMCTC(vocab_size=len(vocab), **ASR_ARGS),
+                               torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model.ctc_out.bias.zero_()
+    os.makedirs(root)
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        yaml.safe_dump({"sample_rate": 16000, "wav_len": 6.0,
+                        "model": {"args": ASR_ARGS}}, f)
+    with open(os.path.join(root, "vocab.json"), "w") as f:
+        json.dump(list(vocab), f)
+    np.save(os.path.join(root, "cmvn.npy"),
+            np.stack([np.full(80, -8.0), np.full(80, 4.0)]).astype(np.float32))
+    state = vad_train.init_adam_train_state(model, "cpu")
+    Checkpointer(os.path.join(root, "models")).save_checkpoint(
+        1, {"train_state": vad_train.state_tree(state)})
+    return root
+
+
+def test_transcriber_through_k1_matches_the_plain_fbank(cuda, tmp_path):
+    """A 9 s recording in two 6 s windows (one K1 launch each) through the
+    transcriber on the card: the same tokens and timestamps as through the
+    plain fbank on the card and as on the CPU, logits within 1e-4."""
+    from speaker3d_tpu_torch.asr.ctc import CTCTranscriber
+
+    exp = _asr_exp(str(tmp_path / "exp"))
+    wav = _asr_batch(np.random.default_rng(2), b=1, n=9 * 16000)["wavs"][0]
+    wav = wav.numpy()
+    tr = CTCTranscriber(exp, device=cuda)
+    launches = fk.fbank_features.launches
+    got = tr.transcribe(wav)
+    assert fk.fbank_features.launches - launches == 2
+    logits = tr.logits(wav[:96000]).cpu().numpy()
+    fb = tr.fbank
+    tr.fbank = lambda w: fk.fbank_plain(w, fb._B, fb._mel, frame_length=400,
+                                        frame_shift=160)
+    assert tr.transcribe(wav) == got
+    np.testing.assert_allclose(tr.logits(wav[:96000]).cpu().numpy(), logits,
+                               rtol=0, atol=1e-4)
+    on_cpu = CTCTranscriber(exp, device="cpu")
+    assert on_cpu.transcribe(wav) == got and got["timestamp"]
+    np.testing.assert_allclose(on_cpu.logits(wav[:96000]).numpy(), logits,
+                               rtol=0, atol=1e-4)
+
+
+def test_predict_label_on_the_card_matches_the_cpu(cuda, tmp_path, capsys):
+    """predict_label on an experiment of the 17.8M ERes2NetV2 (seeded
+    weights, 4 classes): one K1 and seven K2 launches per wav on the card,
+    the same predictions file and accuracy line as on the CPU (the plain
+    functions)."""
+    import os
+
+    import yaml
+
+    from speaker3d_tpu_torch.cli import predict_label
+    from speaker3d_tpu_torch.data.processors import SpkLabelEncoder
+    from speaker3d_tpu_torch.train import sv_train
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    exp = tmp_path / "exp"
+    os.makedirs(exp)
+    model = _randomize(ERes2NetV2(**TRAIN_ARGS), 4)
+    cfg = sv_train.SVTrainConfig(num_classes=4, embedding_size=192)
+    state = sv_train.init_sv_train_state(model, cfg, seed=4, device="cpu")
+    Checkpointer(str(exp / "models")).save_checkpoint(
+        1, {"train_state": sv_train.state_tree(state)})
+    with open(exp / "config.yaml", "w") as f:
+        yaml.safe_dump({"model": {
+            "obj": "speaker3d_tpu.models.eres2netv2.ERes2NetV2",
+            "args": TRAIN_ARGS}}, f)
+    enc = SpkLabelEncoder()
+    for lab in ("en", "zh", "fr", "de"):
+        enc.add(lab)
+    enc.save(str(exp / "label_encoder.pkl"))
+    rng = np.random.default_rng(5)
+    with open(tmp_path / "wav.scp", "w") as scp, \
+            open(tmp_path / "utt2lang", "w") as u2l:
+        for i in range(6):
+            path = str(tmp_path / f"u{i}.wav")
+            t = np.arange(int(rng.uniform(1.0, 4.0) * 16000)) / 16000
+            write_wav(path, (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400)
+                                          * t)
+                             + 0.05 * rng.standard_normal(len(t))), 16000)
+            scp.write(f"u{i} {path}\n")
+            u2l.write(f"u{i} {('en', 'zh', 'fr', 'de')[i % 4]}\n")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+        capsys.readouterr()
+        predict_label.main(["--exp_dir", str(exp), "--data",
+                            str(tmp_path / "wav.scp"), "--utt2label",
+                            str(tmp_path / "utt2lang"), "--out",
+                            str(tmp_path / f"{dev}.txt"), "--device", dev])
+        torch.cuda.synchronize()
+        line = capsys.readouterr().out.splitlines()[-1]
+        outs[dev] = (line, (tmp_path / f"{dev}.txt").read_bytes(),
+                     fk.fbank_features.launches - k1,
+                     rk.res2_block.launches - k2)
+    assert outs["cpu"][2:] == (0, 0) and outs["cuda"][2:] == (6, 42)
+    assert outs["cuda"][:2] == outs["cpu"][:2]
+    assert outs["cuda"][0].startswith("accuracy: ")

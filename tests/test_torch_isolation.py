@@ -56,7 +56,10 @@ def test_package_has_the_slice_modules():
                  "models.segmentation", "diar.overlap", "diar.dnn_vad",
                  "diar.dnn_seg", "data.dataset_vad", "data.dataset_seg",
                  "train.vad_train", "train.seg_train", "cli.train_vad",
-                 "cli.train_segmentation"):
+                 "cli.train_segmentation", "data.processor_para",
+                 "models.sanm", "asr.ctc", "diar.transcribe",
+                 "cli.transcribe_diarization", "cli.train_asr_ctc",
+                 "cli.predict_label"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 

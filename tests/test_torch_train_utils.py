@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from speaker3d_tpu.train import losses as jl
@@ -58,7 +58,7 @@ def test_every_config_model_maps_to_the_port():
         specs = [v for v in cfg.values() if isinstance(v, dict) and "obj" in v]
         for spec in specs:
             obj = spec["obj"]
-            if obj.split(".")[-2] in ("sanm", "face_detector", "ssl_heads",
+            if obj.split(".")[-2] in ("face_detector", "ssl_heads",
                                       "talknet"):
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     tb.dynamic_import(obj)
@@ -171,6 +171,7 @@ MARGIN_KW = dict(increase_start_epoch=20, fix_epoch=50, initial_margin=0.0,
 @settings(max_examples=60, deadline=None)
 @given(step=st.integers(0, 9000), spe=st.integers(1, 130),
        itype=st.sampled_from(["exp", "linear"]))
+@example(step=4942, spe=75, itype="exp")  # 1 + cos cancels: cos = -0.98
 def test_schedules_equal_jax(step, spe, itype):
     got = float(ts.warmup_cosine_lr(step, step_per_epoch=spe, **SCHED_KW))
     want = float(js.warmup_cosine_lr(step, step_per_epoch=spe, **SCHED_KW))
@@ -185,6 +186,38 @@ def test_schedules_equal_jax(step, spe, itype):
     want = float(js.step_lr(step, lr=0.1, step_per_epoch=spe,
                             step_epoch_size=7))
     assert got == pytest.approx(want, rel=1e-6, abs=1e-12)
+
+
+SWEEP_SPE = 75
+SWEEPS = {
+    # name: (port fn, JAX fn, kwargs, first step, abs bound)
+    "warmup_cosine_lr": (ts.warmup_cosine_lr, js.warmup_cosine_lr, SCHED_KW,
+                         SCHED_KW["warmup_epoch"] * SWEEP_SPE, 1e-9),
+    "margin_at_step_exp": (ts.margin_at_step, js.margin_at_step,
+                           dict(MARGIN_KW, increase_type="exp"),
+                           MARGIN_KW["increase_start_epoch"] * SWEEP_SPE,
+                           1e-7),
+    "margin_at_step_linear": (ts.margin_at_step, js.margin_at_step,
+                              dict(MARGIN_KW, increase_type="linear"),
+                              MARGIN_KW["increase_start_epoch"] * SWEEP_SPE,
+                              1e-7),
+    "step_lr": (ts.step_lr, js.step_lr, dict(lr=0.1, step_epoch_size=7), 0,
+                1e-12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_schedule_sweeps_equal_jax(name):
+    """Every step of the ramp (warm-up to ``fix_epoch``, one epoch past it)
+    at 75 steps an epoch, elementwise at the hypothesis test's bounds."""
+    tfn, jfn, kw, first, abs_tol = SWEEPS[name]
+    steps = np.arange(first, 71 * SWEEP_SPE + 1)
+    got = tfn(torch.from_numpy(steps), step_per_epoch=SWEEP_SPE, **kw)
+    want = np.asarray(jfn(jnp.asarray(steps), step_per_epoch=SWEEP_SPE, **kw))
+    # pytest.approx's bound: the larger of rel and abs
+    bad = np.abs(got.numpy() - want) > np.maximum(1e-6 * np.abs(want),
+                                                  abs_tol)
+    assert not bad.any(), (steps[bad][:5], got.numpy()[bad][:5], want[bad][:5])
 
 
 def _cosines(seed, b=16, c=10):
