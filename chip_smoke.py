@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's diarization (every clustering type, and
 the DNN front end), speaker-verification, serving, analysis and training
-paths (the SV, VAD, segmenter and CTC ASR trainers), speaker-attributed
-transcription, label prediction, every registry backbone and the recipe
+paths (the SV, VAD, segmenter, CTC ASR and self-supervised RDINO/SDPN
+trainers), speaker-attributed transcription, label prediction,
+sequential-speaker boundaries, every registry backbone and the recipe
 backbones, on one GPU.
 
     python3 chip_smoke.py
@@ -163,15 +164,44 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     14 (17.8M: K1 and K2) and 16 (CAM++), each prediction against the
     plain functions' argmax on the card and the accuracy line printed. K1
     (item 7) is also held at [32, 96000], [1, 96000], [16, 48000] and [1,
-    48000].
+    48000];
+18. self-supervised training and sequential-speaker boundaries: the SSL
+    mel spectrogram on the card at RDINO's [128, 64000] globals and SDPN's
+    [384, 32000] locals against a float64 numpy evaluation (1e-5 of
+    max|want|), timed; ``cli.train_ssl`` in a process of its own on
+    ``configs/rdino.yaml`` and ``configs/sdpn.yaml`` as shipped (ECAPA-TDNN
+    1024 x 4, 3072, embedding 512; RDINO's head 65,536 / 8,192 / 256 at
+    B = 64 with 2 x 4 s globals and 4 x 2 s locals, SDPN's 1,024
+    prototypes at B = 96 with 1 clean global and 4 augmented locals; 16
+    loader threads) but for the paths and the cuts (192 and 288 seeded
+    utterances of 5-8 s with a MUSAN-laid-out noise list and a RIR bank,
+    3 steps an epoch, 2 epochs; printed): ms a step, samples/s, data-wait
+    share, peak memory, launches (K1 and K2 never), finite losses, the
+    teacher and the centre or prototypes moved; one step of each variant
+    at a reduced width on the card against the port's CPU step (loss and
+    parameters, centre, prototypes within 1e-3 of their scale);
+    ``tests/test_ssl_eer_convergence.py``'s learning gate through
+    ``train_ssl`` and ``extract_ssl`` on the card (SDPN, per seed of five
+    the random-init teacher, then 20 epochs; the medians over the seeds:
+    closed-set EER >= 0.28 before, an improvement >= 0.04, <= 0.34 after;
+    the open set printed); ``infer_sv_ssl`` (the
+    printed cosine against the host's float64 cosine of its saved
+    embeddings, 1e-5) and ``extract_ssl`` on the card against ``--device
+    cpu`` (cosine >= 0.9999) on the trained teacher; ``detect_boundaries``
+    (cosine and gmm) on seeded sequential embeddings (every boundary
+    within 3 of the truth), and, as a chain check, on the teacher's and on
+    the 17.8M model's ``extract`` embeddings of a sequential three-speaker
+    list (K1 and K2 counted: K2 = 7 x K1). K2 (item 8) is also timed at
+    ``predict_label``'s batch-1 shapes.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
 ``shapes`` (K2's per-batch sums in ``per_batch``), and their launches in the
 diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
-front-end, VAD/segmenter training, transcription, CTC training and
-``predict_label`` runs (``launches_by_path`` apart).
+front-end, VAD/segmenter training, transcription, CTC training,
+``predict_label``, SSL (none) and boundaries runs (``launches_by_path``
+apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -183,6 +213,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -396,7 +427,7 @@ def _random_block(cin, planes, stride, gen, base_width=26):
     return blk.cuda().eval()
 
 
-def phase_k2(lengths, main_len: int) -> dict:
+def phase_k2(lengths, main_len: int, predict_lengths=()) -> dict:
     import torch
 
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
@@ -406,9 +437,13 @@ def phase_k2(lengths, main_len: int) -> dict:
     cfg = FbankConfig()
     frames = lambda L: 1 + (L - cfg.frame_length) // cfg.frame_shift
     # the 17.8M model at every L of the path and at the 95 s utterance (B =
-    # 1); ERes2Net base and large at the SV chunk
+    # 1); ERes2Net base and large at the SV chunk; predict_label's batch-1
+    # calls on the 17.8M model at its shortest and longest wav
+    predict = sorted(set(predict_lengths))
     runs = ([("17.8M", L, BATCH) for L in lengths] + [("17.8M", SV_LONGEST, 1)]
-            + [(m, SV_CHUNK, BATCH) for m in ("eres2net_base", "eres2net_large")])
+            + [(m, SV_CHUNK, BATCH) for m in ("eres2net_base", "eres2net_large")]
+            + [("17.8M", L, 1) for L in (predict[:1] + predict[-1:]
+                                         if len(predict) > 1 else predict)])
     cases = [(model, L, batch, *shape) for model, L, batch in runs
              for shape in k2_shapes(frames(L), K2_MODELS[model][0])]
     gen = torch.Generator().manual_seed(1)
@@ -2919,7 +2954,7 @@ def phase_asr(work: str, models: str, train: dict, train16: dict,
 
     from speaker3d_tpu_torch.asr.ctc import CTCTranscriber
     from speaker3d_tpu_torch.cli import train_asr_ctc
-    from speaker3d_tpu_torch.utils.fileio import load_data_csv
+    from speaker3d_tpu_torch.utils.fileio import load_data_csv, read_wav
 
     folder = os.path.join(work, "asr")
     t_phase = time.perf_counter()
@@ -3004,6 +3039,7 @@ def phase_asr(work: str, models: str, train: dict, train16: dict,
 
     # predict_label on the 17.8M ERes2NetV2 (K1, K2) and CAM++ experiments
     rows = list(load_data_csv(train["corpus"][1]).items())[:PREDICT_UTTS]
+    predict_lengths = [read_wav(r["wav"])[0].shape[-1] for _, r in rows]
     scp = os.path.join(folder, "predict.scp")
     utt2label = os.path.join(folder, "utt2label")
     with open(scp, "w") as f:
@@ -3034,6 +3070,7 @@ def phase_asr(work: str, models: str, train: dict, train16: dict,
             "train_k1": run["k1"] + recipe_k1,
             "predict_k1": sum(p["k1"] for p in predicted.values()),
             "predict_k2": sum(p["k2"] for p in predicted.values()),
+            "predict_lengths": predict_lengths,
             # K1's shapes on this path: the shipped trainer's step and
             # windows, the recipe's
             "k1_shapes": [(ASR_BATCH, ASR_CROP), (1, ASR_CROP),
@@ -3048,7 +3085,626 @@ def phase_asr(work: str, models: str, train: dict, train16: dict,
                       "phase_s": phase_s}}
 
 
+# self-supervised training (RDINO, SDPN) and sequential-speaker boundaries:
+# the two configs as shipped (full width, batch, crops, 16 loader threads)
+# on a seeded corpus, cut to SSL_EPOCHS epochs of 3 steps
+SSL_CONFIGS = {"rdino": os.path.join("configs", "rdino.yaml"),
+               "sdpn": os.path.join("configs", "sdpn.yaml")}
+SSL_UTTS = {"rdino": 192, "sdpn": 288}   # 3 steps an epoch at B = 64 / 96
+SSL_EPOCHS = 2                    # the cut (the configs: 150)
+SSL_SPEAKERS = 32
+# the mel features at the steps' own shapes: RDINO's globals [2 x 64, 4 s],
+# SDPN's locals [4 x 96, 2 s]; against a float64 numpy evaluation
+SSL_MEL_SHAPES = ((128, 64000), (384, 32000))
+SSL_MEL_TOL = 1e-5
+# one step on the card against the port's CPU step at a width the CPU runs
+# in seconds: loss relative, parameters / center / prototypes within 1e-3
+# of their scale (the largest magnitude of the model's parameters, of the
+# center, of the prototypes). Leaf by leaf the fp32 gradients of random
+# ECAPA weights are ill-conditioned (training-mode BatchNorm's backward
+# cancels; tests/test_torch_ssl.py): a bias that starts at 0 differs by a
+# per cent of its own size between two fp32 implementations.
+SSL_STEP_CONFIG = {"channels": [128, 128, 128, 128, 384],
+                   "embedding_dim": 192, "out_dim": 4096, "add_dim": 1024,
+                   "bottleneck_dim": 256, "num_proto": 64, "output_dim": 256,
+                   "batch_size": 8, "max_frames": 400, "lr": 0.2,
+                   "warmup_epochs": 10, "epochs": 150}
+SSL_STEP_HEAD_HIDDEN = 512        # RDINO's head MLP at the check's width
+SSL_STEP_AT = 5                   # past step 0, whose warm-up lr is 0
+SSL_STEP_TOL = 1e-3
+# tools/ssl_learn_probe.py's toy SDPN run (tests/test_ssl_eer_convergence.py)
+SSL_GATE_CONFIG = {"max_frames": 200, "local_num": 4, "batch_size": 16,
+                   "num_workers": 2, "warmup_epochs": 1, "lr": 0.5,
+                   "n_mels": 80, "momentum_teacher": 0.7,
+                   "embedding_dim": 64, "out_dim": 256, "add_dim": 64,
+                   "bottleneck_dim": 32, "num_proto": 32, "output_dim": 64,
+                   "channels": [64, 64, 64, 64, 192]}
+SSL_GATE_EPOCHS = 20
+SSL_GATE = {"init_min": 0.28, "improvement_min": 0.04, "trained_max": 0.34}
+# the gate's three conditions hold on the median over five seeds (the
+# CLI's default and the four after it): the trained EER moves with the
+# random-init draw and from run to run (the config's two loader threads
+# draw crops from the global RNGs in a racy order) by more than the gate's
+# headroom. On the CPU, from the JAX package's init draws (its seeds 1234,
+# 1, 2) the port trained to 0.250 / 0.286 / 0.246 where JAX reached 0.223
+# / 0.283 / 0.234; from the port's own draws (seeds 1234, 1, 2, 3, 4) to
+# 0.341 / 0.317 / 0.325 / 0.266 / 0.243, and seed 1234 once more to 0.275;
+# on the H100 seeds 1234-1236 to 0.267 / 0.260 / 0.392 in one run: 2 of 16
+# runs failed the gate, so a median of three fails ~4% of the time and
+# one of five ~0.4%.
+SSL_GATE_SEEDS = (1234, 1235, 1236, 1237, 1238)
+BOUNDARY_TOL = 3                  # frames of the seeded sequential embeddings
+
+
+def ssl_voice(rng, n, formants, f0=None):
+    """A 'speaker' is a fixed pair of formant-like resonances shaping a
+    harmonic excitation whose pitch wanders within the utterance
+    (tools/ssl_learn_probe.py's voice, copied)."""
+    t = np.arange(n) / FS
+    if f0 is None:
+        f0 = rng.uniform(110.0, 240.0)
+    lfo = rng.uniform(0.2, 0.5)
+    f_t = f0 * 2.0 ** (0.5 * np.sin(2 * np.pi * lfo * t
+                                    + rng.uniform(0, 6.28)))
+    phase = 2 * np.pi * np.cumsum(f_t) / FS
+    c1, c2 = formants
+    sig = np.zeros(n)
+    for h in range(1, 13):
+        fh = h * f_t
+        a_h = (np.exp(-0.5 * ((fh - c1) / (0.18 * c1)) ** 2)
+               + 0.7 * np.exp(-0.5 * ((fh - c2) / (0.12 * c2)) ** 2)
+               + 0.05 / h)
+        sig += a_h * np.sin(h * phase + rng.uniform(0, 6.28))
+    am = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t
+                            + rng.uniform(0, 6.28))
+    x = 0.25 * am * sig / (np.abs(sig).max() + 1e-6) * 3.0
+    return (x + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def ssl_probe_corpus(root, n_spk=8, n_utt=16, n_eval_spk=4, n_eval_utt=6,
+                     seed=7):
+    """tools/ssl_learn_probe.py's corpus, copied: the train scp (5 s
+    utterances of n_spk speakers), the closed set (new 3 s utterances of the
+    train speakers) and the open set (held-out speakers between them), each
+    an (scp, [(utt, speaker)]) pair."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    k = n_spk + n_eval_spk
+    c1s, c2s = np.linspace(350.0, 1100.0, k), np.linspace(1300.0, 3600.0, k)
+    perm = rng.permutation(k)
+    slots = [(float(c1s[i]), float(c2s[perm[i]])) for i in range(k)]
+    eval_idx = set(np.linspace(1, k - 2, n_eval_spk).astype(int).tolist())
+    train_f = [slots[i] for i in range(k) if i not in eval_idx]
+    eval_f = [slots[i] for i in sorted(eval_idx)]
+    os.makedirs(root, exist_ok=True)
+    scp = os.path.join(root, "train.scp")
+    with open(scp, "w") as f:
+        for s in range(n_spk):
+            for u in range(n_utt):
+                p = os.path.join(root, f"tr_s{s}_u{u}.wav")
+                write_wav(p, ssl_voice(rng, 5 * FS, train_f[s]), FS)
+                f.write(f"tr_s{s}_u{u} {p}\n")
+    sets = []
+    for tag, voices in (("cl", train_f), ("ev", eval_f)):
+        path = os.path.join(root, f"eval_{tag}.scp")
+        utts = []
+        with open(path, "w") as f:
+            for s, formants in enumerate(voices):
+                for u in range(n_eval_utt):
+                    uid = f"{tag}_s{s}_u{u}"
+                    p = os.path.join(root, f"{uid}.wav")
+                    write_wav(p, ssl_voice(rng, 3 * FS, formants), FS)
+                    f.write(f"{uid} {p}\n")
+                    utts.append((uid, s))
+        sets.append((path, utts))
+    return scp, sets[0], sets[1]
+
+
+def ssl_eer(embs: dict, utts) -> float:
+    """All-pairs cosine EER over ``utts`` [(utt, speaker)]."""
+    from speaker3d_tpu_torch.utils.metrics import compute_eer
+
+    scores, labels = [], []
+    for i in range(len(utts)):
+        for j in range(i + 1, len(utts)):
+            a, b = embs[utts[i][0]], embs[utts[j][0]]
+            scores.append(float(np.dot(a, b) / (np.linalg.norm(a)
+                                                * np.linalg.norm(b) + 1e-12)))
+            labels.append(int(utts[i][1] == utts[j][1]))
+    return float(compute_eer(np.asarray(scores), np.asarray(labels)))
+
+
+def ssl_corpus(folder: str, seed: int = 500) -> tuple:
+    """max(SSL_UTTS) seeded utterances of 5-8 s (SSL_SPEAKERS voices) as a
+    wav.scp for each variant (its first SSL_UTTS), a noise wav.scp laid out
+    as MUSAN's (the category four components from the end: noise, speech,
+    music) and a seeded RIR bank .npy; their paths."""
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(folder, "wav"))
+    rows = []
+    for i in range(max(SSL_UTTS.values())):
+        path = os.path.join(folder, "wav", f"s{i}.wav")
+        write_wav(path, synth_utterance(rng.uniform(5.0, 8.0),
+                                        i % SSL_SPEAKERS, seed=seed + 1 + i),
+                  FS)
+        rows.append(f"s{i:04d} {path}\n")
+    scps = {}
+    for variant, n in SSL_UTTS.items():
+        scps[variant] = os.path.join(folder, f"{variant}.scp")
+        with open(scps[variant], "w") as f:
+            f.writelines(rows[:n])
+    noise = os.path.join(folder, "musan.scp")
+    with open(noise, "w") as f:
+        for j, cat in enumerate(("noise", "speech", "music") * 2):
+            d = os.path.join(folder, "musan", cat, f"set{j}", "wav")
+            os.makedirs(d, exist_ok=True)
+            x = rng.standard_normal(int(6 * FS))
+            if cat == "speech":
+                x = synth_utterance(6.0, 100 + j, seed=seed + 900 + j)
+            elif cat == "music":
+                t = np.arange(len(x)) / FS
+                x = sum(np.sin(2 * np.pi * f0 * t) for f0 in
+                        rng.uniform(200, 1200, 3)) + 0.1 * x
+            path = os.path.join(d, f"{cat}{j}.wav")
+            write_wav(path, 0.5 * x / np.abs(x).max(), FS)
+            f.write(f"{cat}{j} {path}\n")
+    rir = np.exp(-np.arange(4000) / (0.05 * FS))[None] * rng.standard_normal(
+        (8, 4000)) * 0.3
+    rir[:, 0] = 1.0
+    rir_path = os.path.join(folder, "rir.npy")
+    np.save(rir_path, rir.astype(np.float32))
+    return scps, noise, rir_path
+
+
+def melspec_f64(wav: np.ndarray, n_mels: int = 80) -> np.ndarray:
+    """The SSL mel spectrogram in float64 numpy: reflect padding, frames,
+    the windowed DFT, the power spectrum, the HTK mel projection."""
+    from speaker3d_tpu_torch.ops.melspec import (
+        MelSpecConfig, mel_filterbank, window_dft_matrix)
+
+    cfg = MelSpecConfig(n_mels=n_mels)
+    p = cfg.n_fft // 2
+    x = np.pad(wav.astype(np.float64), ((0, 0), (p, p)), mode="reflect")
+    n = 1 + (x.shape[1] - cfg.n_fft) // cfg.hop_length
+    idx = (np.arange(n)[:, None] * cfg.hop_length
+           + np.arange(cfg.n_fft)[None])
+    y = x[:, idx] @ window_dft_matrix(cfg)
+    bins = cfg.n_fft // 2 + 1
+    return (y[..., :bins] ** 2 + y[..., bins:] ** 2) @ mel_filterbank(cfg)
+
+
+def _ssl_mel_check() -> dict:
+    """Part a: the card's MelSpectrogram at the steps' shapes against
+    float64 numpy, and its time."""
+    import torch
+
+    from speaker3d_tpu_torch.ops.melspec import MelSpectrogram
+
+    mel = MelSpectrogram(device="cuda")
+    rows = []
+    for batch, n in SSL_MEL_SHAPES:
+        wav = _test_waves(np.random.default_rng(batch), batch, n)
+        x = torch.from_numpy(wav).cuda()
+        got = mel(x).cpu().numpy().astype(np.float64)
+        want = melspec_f64(wav)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if not err <= SSL_MEL_TOL:
+            raise AssertionError(f"MelSpectrogram [{batch}, {n}] on the card:"
+                                 f" {err:.3g} of max|want| > {SSL_MEL_TOL}")
+        rows.append({"shape": [batch, n], "rel_err": err,
+                     "ms": cuda_ms(lambda: mel(x), iters=10, runs=3)})
+        del x
+    return {"shapes": rows}
+
+
+def _ssl_ckpt(exp: str, epoch: int) -> dict:
+    from speaker3d_tpu_torch.utils.checkpoint import load_pytree
+
+    return load_pytree(os.path.join(exp, "models", f"CKPT-EPOCH-{epoch}-00",
+                                    "ssl_state.ckpt"))
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    from speaker3d_tpu_torch.utils.checkpoint import _flatten
+
+    fb = dict(_flatten(b))
+    return max(float(np.abs(v - fb[k]).max()) for k, v in _flatten(a))
+
+
+def _ssl_train_process(variant: str, folder: str, scp: str, noise: str,
+                       rir: str) -> dict:
+    """cli.train_ssl on the variant's config as shipped, in a process of its
+    own, overriding the paths and the epochs."""
+    exp = os.path.join(folder, f"exp_{variant}")
+    argv = ["--config", SSL_CONFIGS[variant], "--variant", variant,
+            f"--exp_dir={exp}", f"--data={scp}", f"--noise={noise}",
+            f"--rir_bank={rir}", f"--epochs={SSL_EPOCHS}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN_RUNNER,
+         "speaker3d_tpu_torch.cli.train_ssl"] + argv, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli.train_ssl {variant} failed (rc "
+                             f"{out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    epochs = re.findall(_EPOCH_LINE, out.stdout)
+    counts = re.search(r"\[train launches\] (\{.*\})", out.stdout)
+    if len(epochs) != SSL_EPOCHS or counts is None:
+        raise AssertionError(f"cli.train_ssl {variant} printed {len(epochs)} "
+                             f"of {SSL_EPOCHS} epoch summaries:\n"
+                             f"{out.stdout[-3000:]}")
+    counts = json.loads(counts.group(1))
+    with open(os.path.join(exp, "log.txt")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [line["loss"] for line in logged]
+    first, last = _ssl_ckpt(exp, 1), _ssl_ckpt(exp, SSL_EPOCHS)
+    moved = {"teacher": _max_diff(first["teacher"], last["teacher"])}
+    for key in ("center", "prototypes"):
+        if key in last:
+            moved[key] = float(np.abs(last[key] - first[key]).max())
+    del first, last
+    shutil.rmtree(exp)  # two checkpoints of ~0.3-0.7 GB
+    last_epoch = epochs[-1]
+    steps = sum(int(e[1]) for e in epochs)
+    run = {"exp": exp, "epochs": len(epochs), "steps": steps,
+           "batch": int(last_epoch[2]),
+           "step_ms_median_last_epoch": float(last_epoch[3]),
+           "first_step_ms": float(epochs[0][4]),
+           "samples_per_s_last_epoch": float(last_epoch[5]),
+           "data_wait_share": (sum(float(e[6]) for e in epochs)
+                               / sum(float(e[7]) for e in epochs)),
+           "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
+           "k1": counts["k1"], "k2": counts["k2"], "losses": losses,
+           "moved": moved, "process_wall_s": wall}
+    if not (counts["k1"] == 0 and counts["k2"] == 0
+            and steps == SSL_EPOCHS * 3 and all(np.isfinite(losses))
+            and all(v > 0 for v in moved.values())):
+        raise AssertionError(f"cli.train_ssl {variant}: launches K1 "
+                             f"{counts['k1']} K2 {counts['k2']} (want 0), "
+                             f"{steps} steps, losses {losses}, moved {moved}")
+    return run
+
+
+def _ssl_step_checks(scps: dict, noise: str, rir: str) -> dict:
+    """Part d: one step of each variant at SSL_STEP_CONFIG's width from one
+    state and batch, on the card against the port's CPU step."""
+    import copy
+    import random
+
+    import torch
+
+    from speaker3d_tpu_torch.cli.train_ssl import (
+        build_ssl_model, ssl_train_config)
+    from speaker3d_tpu_torch.data.dataset_ssl import RDINODataset, SDPNDataset
+    from speaker3d_tpu_torch.models.ssl_heads import RDINOHead
+    from speaker3d_tpu_torch.ops.melspec import MelSpectrogram
+    from speaker3d_tpu_torch.train import ssl_train
+
+    out = {}
+    for variant in ("rdino", "sdpn"):
+        config = dict(SSL_STEP_CONFIG)
+        model = build_ssl_model(variant, config, seed=11)
+        if variant == "rdino":
+            model.head = RDINOHead(
+                in_dim=config["embedding_dim"], out_dim=config["out_dim"],
+                hidden_dim=SSL_STEP_HEAD_HIDDEN,
+                bottleneck_dim=config["bottleneck_dim"],
+                add_dim=config["add_dim"],
+                generator=torch.Generator().manual_seed(12))
+        cfg = ssl_train_config(config, variant, 3)
+        ds = (RDINODataset if variant == "rdino" else SDPNDataset)(
+            scps[variant], noise=noise, rir_bank=rir,
+            glb_num=2 if variant == "rdino" else 1)
+        random.seed(13)
+        np.random.seed(13)
+        items = [ds[i] for i in range(config["batch_size"])]
+        batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+                 for k in items[0]}
+        results = {}
+        for device in ("cpu", "cuda"):
+            state = ssl_train.init_ssl_state(
+                copy.deepcopy(model), cfg, variant, device,
+                generator=torch.Generator().manual_seed(14))
+            state.step = SSL_STEP_AT
+            make = (ssl_train.make_rdino_train_step if variant == "rdino"
+                    else ssl_train.make_sdpn_train_step)
+            step = make(cfg, feature_fn=MelSpectrogram(device=device))
+            t0 = time.perf_counter()
+            metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+            loss = float(metrics["loss"])
+            results[device] = (loss, ssl_train.state_tree(state),
+                               time.perf_counter() - t0)
+            del state
+        (loss_c, cpu, cpu_s), (loss_g, card, card_s) = (results["cpu"],
+                                                       results["cuda"])
+        from speaker3d_tpu_torch.utils.checkpoint import _flatten
+
+        worst = {}
+        for part in ("student", "teacher"):
+            want = dict(_flatten(cpu[part]["params"]))
+            got = dict(_flatten(card[part]["params"]))
+            scale = max(float(np.abs(v).max()) for v in want.values())
+            worst[part] = max(float(np.abs(got[k] - v).max())
+                              for k, v in want.items()) / scale
+        for key in ("center", "prototypes"):
+            if key in cpu:
+                worst[key] = float(np.abs(card[key] - cpu[key]).max()
+                                   / np.abs(cpu[key]).max())
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        out[variant] = {"loss": loss_c, "loss_rel": rel, "worst": worst,
+                        "cpu_step_s": cpu_s, "card_step_s": card_s}
+        if not (rel <= SSL_STEP_TOL and max(worst.values()) <= SSL_STEP_TOL):
+            raise AssertionError(f"SSL {variant} step, card vs CPU: loss rel "
+                                 f"{rel:.3g}, worst {worst} (> "
+                                 f"{SSL_STEP_TOL})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssl_gate(folder: str) -> dict:
+    """Part e: tests/test_ssl_eer_convergence.py's protocol through the
+    port's CLIs on the card: per seed of SSL_GATE_SEEDS the random-init
+    teacher (epochs: 0) and the teacher after SSL_GATE_EPOCHS epochs of
+    SDPN, each embedded by extract_ssl; closed-set and open-set EER; the
+    gate's conditions on the medians over the seeds."""
+    import contextlib
+    import io
+    import statistics
+
+    import yaml
+
+    from speaker3d_tpu_torch.cli import extract_ssl, train_ssl
+    from speaker3d_tpu_torch.eval.scoring import load_embeddings
+
+    t0 = time.perf_counter()
+    scp, closed, open_ = ssl_probe_corpus(folder)
+    corpus_s = time.perf_counter() - t0
+    eers, exps, walls, k = {}, {}, {}, []
+    for seed in SSL_GATE_SEEDS:
+        for tag, epochs in (("init", 0), ("trained", SSL_GATE_EPOCHS)):
+            exp = os.path.join(folder, f"exp_sdpn_{seed}_{tag}")
+            cfg = os.path.join(folder, f"cfg_{seed}_{tag}.yaml")
+            with open(cfg, "w") as f:
+                yaml.safe_dump({"exp_dir": exp, "data": scp,
+                                "epochs": epochs, **SSL_GATE_CONFIG}, f)
+            t0 = time.perf_counter()
+            eer = eers.setdefault(seed, {}).setdefault(tag, {})
+            with contextlib.redirect_stdout(io.StringIO()):
+                k.append(_counted(lambda: train_ssl.main(
+                    ["--config", cfg, "--variant", "sdpn", "--seed",
+                     str(seed)])))
+                for name, (eval_scp, utts) in (("closed", closed),
+                                               ("open", open_)):
+                    emb_dir = os.path.join(exp, f"embs_{name}")
+                    k.append(_counted(lambda: extract_ssl.main(
+                        ["--exp_dir", exp, "--data", eval_scp, "--out_dir",
+                         emb_dir, "--variant", "sdpn"])))
+                    eer[name] = ssl_eer(load_embeddings(emb_dir), utts)
+            walls[f"{seed}_{tag}"] = round(time.perf_counter() - t0, 1)
+            if (seed, tag) != (SSL_GATE_SEEDS[0], "trained"):
+                shutil.rmtree(exp)  # a checkpoint a epoch, ~50 MB each
+            exps[(seed, tag)] = exp
+    med = {key: statistics.median(f(e) for e in eers.values())
+           for key, f in (("init", lambda e: e["init"]["closed"]),
+                          ("trained", lambda e: e["trained"]["closed"]),
+                          ("improvement", lambda e: e["init"]["closed"]
+                           - e["trained"]["closed"]))}
+    ok = (med["init"] >= SSL_GATE["init_min"]
+          and med["improvement"] >= SSL_GATE["improvement_min"]
+          and med["trained"] <= SSL_GATE["trained_max"])
+    if not ok or any(c != (0, 0) for c in k):
+        raise AssertionError(f"the SSL learning gate on the card: closed EER "
+                             f"medians {med} over seeds {eers} (want init >= "
+                             f"{SSL_GATE['init_min']}, an improvement >= "
+                             f"{SSL_GATE['improvement_min']}, trained <= "
+                             f"{SSL_GATE['trained_max']}); launches {k}")
+    return {"eer": eers, "median": med,
+            "exp": exps[(SSL_GATE_SEEDS[0], "trained")], "closed": closed,
+            "corpus_s": corpus_s, "train_and_extract_s": walls}
+
+
+def _sequential_embs(sizes, dim=16, seed=0, spread=0.05):
+    """tests/test_boundaries.py's seeded sequential speakers, copied."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
+    return np.concatenate([q[i] + spread * rng.standard_normal((n, dim))
+                           for i, n in enumerate(sizes)])
+
+
+def _detect(emb_dir: str, n_spk: int, method: str, out: str) -> list:
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import detect_boundaries
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        detect_boundaries.main(["--emb", emb_dir, "--num_speakers",
+                                str(n_spk), "--method", method, "--out", out])
+    with open(out) as f:
+        return json.load(f)["boundaries"]
+
+
+def _ssl_scoring_and_boundaries(folder: str, gate: dict, models: str) -> dict:
+    """Part f: infer_sv_ssl and extract_ssl (card against --device cpu) on
+    the trained teacher; detect_boundaries on seeded sequential embeddings,
+    on the teacher's embeddings of a sequential three-speaker list and on
+    the 17.8M model's ``extract`` embeddings of it (K1, K2 counted)."""
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import extract, extract_ssl, infer_sv_ssl
+    from speaker3d_tpu_torch.eval.scoring import load_embeddings
+    from speaker3d_tpu_torch.utils.fileio import load_wav_scp
+
+    exp, (closed_scp, closed) = gate["exp"], gate["closed"]
+    wavs = load_wav_scp(closed_scp)
+    pair = [wavs[closed[0][0]], wavs[closed[1][0]]]
+    save = os.path.join(folder, "sv_pair")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        sv_k = _counted(lambda: infer_sv_ssl.main(
+            ["--exp_dir", exp, "--wavs", *pair, "--save_dir", save]))
+    a, b = (np.load(os.path.join(save, os.path.splitext(
+        os.path.basename(p))[0] + ".npy")).astype(np.float64) for p in pair)
+    host = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    said = float(re.search(r"\[INFO\] cosine similarity: ([-\d.]+)",
+                           printed.getvalue()).group(1))
+    if not abs(said - host) <= 1e-5:
+        raise AssertionError(f"infer_sv_ssl printed {said}, host cosine "
+                             f"{host}")
+    embs = {}
+    for device in ("cuda", "cpu"):
+        out_dir = os.path.join(folder, f"closed_{device}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            extract_ssl.main(["--exp_dir", exp, "--data", closed_scp,
+                              "--out_dir", out_dir, "--variant", "sdpn",
+                              "--device", device])
+        embs[device] = load_embeddings(out_dir)
+    card_vs_cpu = _min_cosine(embs["cuda"], embs["cpu"],
+                              "extract_ssl on the card vs --device cpu")
+
+    # boundaries: seeded sequential embeddings, both methods, on the card
+    seeded = os.path.join(folder, "seeded_embs")
+    os.makedirs(seeded)
+    for i, e in enumerate(_sequential_embs([65, 70, 65], seed=2)):
+        np.save(os.path.join(seeded, f"utt{i:04d}.npy"), e.astype(np.float32))
+    found = {m: _detect(seeded, 3, m, os.path.join(folder, f"seeded_{m}.json"))
+             for m in ("cosine", "gmm")}
+    for m, got in found.items():
+        if not (len(got) == 2 and abs(got[0] - 65) <= BOUNDARY_TOL
+                and abs(got[1] - 135) <= BOUNDARY_TOL):
+            raise AssertionError(f"detect_boundaries {m} on the seeded "
+                                 f"embeddings: {got}, want [65, 135] +- "
+                                 f"{BOUNDARY_TOL}")
+    # a sequential three-speaker list: the closed set's speakers 0, 1, 2
+    seq = [u for u, s in closed if s < 3]
+    truth = [sum(1 for _, s in closed if s == 0),
+             sum(1 for _, s in closed if s < 2)]
+    seq_scp = os.path.join(folder, "sequential.scp")
+    with open(seq_scp, "w") as f:
+        f.writelines(f"seq{i:03d} {wavs[u]}\n" for i, u in enumerate(seq))
+    chains = {}
+    teacher_dir = os.path.join(folder, "seq_teacher")
+    with contextlib.redirect_stdout(io.StringIO()):
+        teacher_k = _counted(lambda: extract_ssl.main(
+            ["--exp_dir", exp, "--data", seq_scp, "--out_dir", teacher_dir,
+             "--variant", "sdpn"]))
+    sv_dir = os.path.join(folder, "seq_17.8M")
+    with contextlib.redirect_stdout(io.StringIO()):
+        extract_k = _counted(lambda: extract.main(
+            ["--model_id", MODEL_17M, "--local_model_dir", models, "--data",
+             seq_scp, "--out_dir", sv_dir]))
+    if not (extract_k[0] > 0 and extract_k[1] == 7 * extract_k[0]):
+        raise AssertionError(f"extract 17.8M on the sequential list: "
+                             f"launches {extract_k}; want K2 = 7 x K1")
+    for tag, emb_dir in (("ssl_teacher", teacher_dir), ("eres2netv2_17.8M",
+                                                        sv_dir)):
+        chains[tag] = {}
+        for m in ("cosine", "gmm"):
+            got = _detect(emb_dir, 3, m,
+                          os.path.join(folder, f"seq_{tag}_{m}.json"))
+            chains[tag][m] = {"boundaries": got, "distance": [
+                abs(g - t) for g, t in zip(got, truth)]}
+    ssl_k = [sv_k, teacher_k]
+    if any(c != (0, 0) for c in ssl_k):
+        raise AssertionError(f"the SSL CLIs launched K1/K2: {ssl_k}")
+    return {"infer_sv_ssl_cosine": said, "host_cosine": host,
+            "extract_card_vs_cpu_min_cosine": card_vs_cpu,
+            "seeded": found, "sequential_truth": truth, "chains": chains,
+            "extract_k1": extract_k[0], "extract_k2": extract_k[1]}
+
+
+def phase_ssl(work: str, models: str, smi: str) -> dict:
+    """RDINO and SDPN at the shipped widths, the card-vs-CPU step checks,
+    the learning gate, the SSL scoring CLIs and the boundaries."""
+    import torch
+
+    folder = os.path.join(work, "ssl")
+    t_phase = time.perf_counter()
+    mel = _ssl_mel_check()
+    for row in mel["shapes"]:
+        log(f"[ssl mel] MelSpectrogram {row['shape']} on the card against "
+            f"float64 numpy: {row['rel_err']:.3g} of max|want| (<= "
+            f"{SSL_MEL_TOL:g}); {row['ms']:.4f} ms (TF32 off)")
+    t0 = time.perf_counter()
+    scps, noise, rir = ssl_corpus(os.path.join(folder, "corpus"))
+    corpus_s = time.perf_counter() - t0
+    runs = {}
+    for variant in ("rdino", "sdpn"):
+        run = runs[variant] = _ssl_train_process(
+            variant, folder, scps[variant], noise, rir)
+        log(f"[ssl train {variant}] {smi}: cli.train_ssl on "
+            f"{SSL_CONFIGS[variant]} as shipped (ECAPA-TDNN 1024 x 4, 3072, "
+            f"embedding 512; CUT: {SSL_UTTS[variant]} seeded utterances of "
+            f"5-8 s, {SSL_EPOCHS} epochs, not 150, so the lr stays in its "
+            f"10-epoch warm-up), {run['steps']} steps of {run['batch']}: step "
+            f"{run['step_ms_median_last_epoch']:.1f} ms (median of the last "
+            f"epoch, CUDA events; the first {run['first_step_ms']:.1f}), "
+            f"{run['samples_per_s_last_epoch']:.1f} samples/s, data wait "
+            f"{run['data_wait_share']:.1%} of the epochs, max_memory_allocated "
+            f"{run['max_memory_allocated_gib']:.2f} GiB; launches K1 "
+            f"{run['k1']} K2 {run['k2']}; losses by epoch "
+            f"{[round(x, 4) for x in run['losses']]}; moved between epochs 1 "
+            f"and {SSL_EPOCHS}: {run['moved']}; the process "
+            f"{run['process_wall_s']:.1f} s (corpus written in "
+            f"{corpus_s:.1f} s)")
+    checks = _ssl_step_checks(scps, noise, rir)
+    for variant, c in checks.items():
+        log(f"[ssl step {variant}] B = {SSL_STEP_CONFIG['batch_size']} at "
+            f"channels {SSL_STEP_CONFIG['channels']}: the card vs the port's "
+            f"CPU step: loss {c['loss']:.5f}, rel {c['loss_rel']:.3g}; "
+            f"worst of their scale {c['worst']} (<= {SSL_STEP_TOL:g}); the "
+            f"CPU step {c['cpu_step_s']:.2f} s, the card's (first call) "
+            f"{c['card_step_s']:.2f} s")
+    gate = _ssl_gate(os.path.join(folder, "gate"))
+    for seed, e in gate["eer"].items():
+        log(f"[ssl gate seed {seed}] SDPN, tools/ssl_learn_probe.py's toy "
+            f"config (lr 0.5, teacher momentum 0.7, 32 prototypes), "
+            f"{SSL_GATE_EPOCHS} epochs on the card: closed-set EER "
+            f"{e['init']['closed']:.4f} -> {e['trained']['closed']:.4f} "
+            f"(improvement {e['init']['closed'] - e['trained']['closed']:.4f})"
+            f"; open set {e['init']['open']:.4f} -> "
+            f"{e['trained']['open']:.4f} (unchecked)")
+    m = gate["median"]
+    log(f"[ssl gate] medians over seeds {SSL_GATE_SEEDS}: closed EER "
+        f"{m['init']:.4f} -> {m['trained']:.4f}, improvement "
+        f"{m['improvement']:.4f} (want init >= {SSL_GATE['init_min']}, "
+        f"improvement >= {SSL_GATE['improvement_min']}, trained <= "
+        f"{SSL_GATE['trained_max']}); train+extract s "
+        f"{gate['train_and_extract_s']}")
+    scoring = _ssl_scoring_and_boundaries(os.path.join(folder, "scoring"),
+                                          gate, models)
+    log(f"[ssl scoring] infer_sv_ssl printed {scoring['infer_sv_ssl_cosine']}"
+        f" (host float64 {scoring['host_cosine']:.7f}); extract_ssl on the "
+        f"card vs --device cpu: min cosine "
+        f"{scoring['extract_card_vs_cpu_min_cosine']:.7f}")
+    log(f"[boundaries] seeded sequential embeddings [65, 70, 65]: "
+        f"{scoring['seeded']}; the sequential three-speaker list (truth "
+        f"{scoring['sequential_truth']}, a chain check): {scoring['chains']}; "
+        f"extract 17.8M launches K1 {scoring['extract_k1']} K2 "
+        f"{scoring['extract_k2']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[ssl] the phase took {phase_s:.1f} s")
+    torch.cuda.empty_cache()
+    return {"k1": 0, "k2": 0, "boundaries_k1": scoring["extract_k1"],
+            "boundaries_k2": scoring["extract_k2"],
+            "stats": {"mel": mel, "train": {
+                v: {k: x for k, x in r.items() if k != "exp"}
+                for v, r in runs.items()}, "step_checks": checks,
+                "gate": {"eer": gate["eer"], "median": gate["median"],
+                         "corpus_s": gate["corpus_s"],
+                         "train_and_extract_s": gate["train_and_extract_s"]},
+                "scoring": scoring, "phase_s": phase_s}}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     sys.path.insert(0, ROOT)
     device = phase_device()
     phase_build()
@@ -3063,11 +3719,12 @@ def main() -> int:
         train16 = phase_train_bf16(train["corpus"], device["smi"])
         dnn = phase_dnn_front(work, pipe["models"], device["smi"])
         asr = phase_asr(work, pipe["models"], train, train16, device["smi"])
+        ssl = phase_ssl(work, pipe["models"], device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
                   dnn["k1_shapes"] + asr["k1_shapes"])
     dnn_front_k1_share(k1, dnn)
-    k2 = phase_k2(lengths, pipe["main_len"])
+    k2 = phase_k2(lengths, pipe["main_len"], asr["predict_lengths"])
     k3 = phase_k3()
     phase_nnchain()
     cluster = phase_cluster(device["smi"])
@@ -3087,7 +3744,9 @@ def main() -> int:
                                  "asr": asr[key],
                                  "asr_train": asr["train_k1"] if key == "k1"
                                  else 0,
-                                 "predict_label": asr[f"predict_{key}"]}
+                                 "predict_label": asr[f"predict_{key}"],
+                                 "ssl": ssl[key],
+                                 "boundaries": ssl[f"boundaries_{key}"]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -3101,7 +3760,9 @@ def main() -> int:
                     "train_bf16": train16["stats"],
                     "dnn_front": {k: v for k, v in dnn.items()
                                   if k not in ("k1", "k2", "train_k1")},
-                    "asr": asr["stats"]}))
+                    "asr": asr["stats"], "ssl": ssl["stats"],
+                    "script_s": time.perf_counter() - t_script}))
+    log(f"[script] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],

@@ -15,14 +15,17 @@ the reference (CAM++'s ``xvector.dense.linear``, ECAPA's ``fc.conv``,
 ASTP's ``linear1``/``linear2``, the classifiers' ``blocks.<i>.linear``):
 given the port module's state_dict as ``like``, a leaf of the same size is
 reshaped to the module's shape, [O, I] -> [O, I, 1]. A raw ``weight``
-parameter (``CosineClassifier``) is already in torch layout and is copied
-as it is.
+parameter (``CosineClassifier``) and a weight-normed layer's ``weight_g`` /
+``weight_v`` (the SSL heads' ``last_layer``) are already in torch layout
+and are copied as they are.
 
 ``flax_from_state_dict`` is the inverse for modules whose layer lists are
 Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter, SAN-M's
 ``encoders.{i}``), and whose other dotted Flax names are given as
-``joined`` (SAN-M's ``feed_forward.w_1``): the port's trainers write their
-checkpoints in the JAX trainers' layout with it.
+``joined`` (SAN-M's ``feed_forward.w_1``; ECAPA's ``norm.norm``,
+``asp_bn.norm``, ``fc.conv``), and whose k=1 convs that Flax holds as Dense
+layers are named in ``dense`` (ECAPA's ``fc.conv``): the port's trainers
+write their checkpoints in the JAX trainers' layout with it.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ _LEAF_TO_TORCH = {
     "mean": "running_mean",
     "var": "running_var",
     "weight": "weight",  # a raw parameter kept in torch layout (CosineClassifier)
+    "weight_g": "weight_g",  # weight norm's gain [O, 1] and direction [O, I]
+    "weight_v": "weight_v",
 }
+_RAW_LEAVES = ("weight_g", "weight_v")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -104,23 +110,29 @@ def _flax_module_path(parts, joined: Sequence[str] = ()):
 
 
 def flax_from_state_dict(state_dict: Mapping[str, Any],
-                         joined: Sequence[str] = ()) -> dict:
+                         joined: Sequence[str] = (),
+                         dense: Sequence[str] = ()) -> dict:
     """A state_dict -> ``{'params'[, 'batch_stats']}`` as nested dicts of
     numpy arrays, the inverse of ``state_dict_from_flax``: a ``weight`` of
     1 dimension is a norm's ``scale``, of 2 a Dense kernel [I, O], of 3 a
-    Conv kernel [k, I, O] and of 4 an HWIO kernel; ``running_mean`` and
+    Conv kernel [k, I, O] (a Dense kernel [I, O] where the module's Flax
+    name is in ``dense``) and of 4 an HWIO kernel; ``weight_g`` and
+    ``weight_v`` are copied as they are; ``running_mean`` and
     ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
     dropped. ``joined``: the Flax submodule names that hold a dot besides
-    an index (a model's ``FLAX_JOINED_NAMES``)."""
+    an index (a model's ``flax_joined_names``)."""
     out: dict = {}
     for key, val in state_dict.items():
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        t = np.array(val.detach().cpu() if isinstance(val, torch.Tensor)
-                     else val)
+        t = np.array(val.detach().cpu().numpy()
+                     if isinstance(val, torch.Tensor) else val)
         coll = "params"
-        if leaf == "weight":
+        path = _flax_module_path(mods, joined)
+        if leaf in _RAW_LEAVES:
+            pass
+        elif leaf == "weight":
             if t.ndim == 1:
                 leaf = "scale"
             else:
@@ -128,12 +140,14 @@ def flax_from_state_dict(state_dict: Mapping[str, Any],
                 # OIHW -> HWIO; OI -> IO and OIW -> WIO
                 t = (t.transpose(2, 3, 1, 0) if t.ndim == 4
                      else t.transpose(tuple(range(t.ndim))[::-1]))
+                if t.ndim == 3 and path and path[-1] in dense:
+                    t = t.reshape(t.shape[1:])  # [1, I, O] -> [I, O]
         elif leaf in ("running_mean", "running_var"):
             coll, leaf = "batch_stats", leaf[len("running_"):]
         elif leaf != "bias":
             raise KeyError(f"no flax mapping for torch leaf {key}")
         node = out.setdefault(coll, {})
-        for m in _flax_module_path(mods, joined):
+        for m in path:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(t)
     return out

@@ -33,14 +33,23 @@ def _sq_dists(x, centers):
     return np.maximum(d2, 0.0)
 
 
-def kmeans_plusplus(x: np.ndarray, k: int, rng) -> np.ndarray:
+def kmeans_plusplus(x: np.ndarray, k: int, rng,
+                    first: str = "randint") -> np.ndarray:
     """Greedy k-means++: each new centre is the best of 2 + int(log k)
     candidates drawn in proportion to the squared distance to the nearest
-    centre so far."""
+    centre so far. ``first``: how the first centre is drawn, ``"randint"``
+    or ``"choice"`` (``rng.choice`` over uniform weights, as
+    ``sklearn.cluster.KMeans`` draws it, so that a seeded generator gives
+    its seeds)."""
     n = x.shape[0]
     trials = 2 + int(np.log(k))
     centers = np.empty((k, x.shape[1]))
-    centers[0] = x[rng.randint(n)]
+    if first == "choice":
+        centers[0] = x[rng.choice(n, p=np.ones(n) / n)]
+    elif first == "randint":
+        centers[0] = x[rng.randint(n)]
+    else:
+        raise ValueError(f"unknown first-centre draw {first!r}")
     closest = _sq_dists(x, centers[:1])[:, 0]
     pot = closest.sum()
     for c in range(1, k):

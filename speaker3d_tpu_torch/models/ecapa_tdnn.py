@@ -15,6 +15,11 @@ nested wrappers (``blocks.0.conv.conv``, ``blocks.1.tdnn1.norm.norm``,
 
 Static-shape path only: the reference's ``lengths=None`` (an all-ones
 mask), which is what chunked inference uses.
+
+``ssl_input_norm=True`` is the SSL trainers' variant (RDINO, SDPN): its
+input is a *linear* mel spectrogram (``ops/melspec.py``), and the forward
+first takes ``log(x + 1e-6)`` and a per-utterance instance norm over time
+(biased variance, eps 1e-5), detached from the graph.
 """
 
 from __future__ import annotations
@@ -161,8 +166,15 @@ class SERes2NetBlock(nn.Module):
 
 
 class ECAPA_TDNN(nn.Module):
-    """Input: log-mel features [B, T, input_size]. Output: [B, lin_neurons].
-    The released checkpoints use channels (1024, 1024, 1024, 1024, 3072)."""
+    """Input: log-mel features [B, T, input_size] (linear mel with
+    ``ssl_input_norm``). Output: [B, lin_neurons]. The released checkpoints
+    use channels (1024, 1024, 1024, 1024, 3072)."""
+
+    # the Flax submodule names that hold a dot besides an index, and the
+    # k=1 convs that the JAX module holds as Dense layers
+    # (``compat/flax_convert.py::flax_from_state_dict``)
+    flax_joined_names = ("norm.norm", "asp_bn.norm", "fc.conv")
+    flax_dense_names = ("fc.conv",)
 
     def __init__(self, input_size: int = 80, lin_neurons: int = 192,
                  channels: Sequence[int] = (512, 512, 512, 512, 1536),
@@ -172,10 +184,7 @@ class ECAPA_TDNN(nn.Module):
                  se_channels: int = 128, global_context: bool = True,
                  ssl_input_norm: bool = False):
         super().__init__()
-        if ssl_input_norm:
-            raise NotImplementedError(
-                "ECAPA_TDNN(ssl_input_norm=True) is the SSL variant: not "
-                "ported to the PyTorch package yet (ROADMAP.md, M12)")
+        self.ssl_input_norm = ssl_input_norm
         self.blocks = nn.ModuleList([TDNNBlock(
             input_size, channels[0], kernel_sizes[0], dilations[0])])
         for i in range(1, len(channels) - 1):
@@ -190,6 +199,11 @@ class ECAPA_TDNN(nn.Module):
         self.fc = SBConv1d(channels[-1] * 2, lin_neurons, 1)
 
     def forward(self, x):
+        if self.ssl_input_norm:
+            x = torch.log(x + 1e-6)
+            mean = x.mean(dim=1, keepdim=True)
+            var = x.var(dim=1, keepdim=True, unbiased=False)
+            x = ((x - mean) / torch.sqrt(var + 1e-5)).detach()
         x = x.transpose(1, 2)                  # [B, T, F] -> [B, F, T]
         xl = []
         for block in self.blocks:

@@ -27,7 +27,6 @@ _PORT_PKG = "speaker3d_tpu_torch."
 # ROADMAP.md item that ports them
 NOT_PORTED = {
     "speaker3d_tpu_torch.models.face_detector": "M11b (video diarization)",
-    "speaker3d_tpu_torch.models.ssl_heads": "M12 (SSL training)",
     "speaker3d_tpu_torch.models.talknet": "M12 (ASD training)",
 }
 

@@ -64,8 +64,19 @@ def test_same_padding_is_reflect_split_like_jax(k, d):
 
 
 def test_ssl_input_norm_refused_naming_m12():
-    with pytest.raises(NotImplementedError, match="M12"):
-        ECAPA_TDNN(ssl_input_norm=True)
+    """The SSL variant (M12) is no longer refused: on a linear-mel input
+    (log, then the detached instance norm over time) it matches the JAX
+    one."""
+    kw = {**SMALL, "ssl_input_norm": True}
+    jm = JaxECAPA(**kw)
+    variables = jax_variables(jm, t=60, seed=11)
+    feats = np.exp(2.0 * np.random.default_rng(12).standard_normal(
+        (2, 101, 80))).astype(np.float32)
+    ref = np.asarray(jax.jit(jm.apply)(variables, feats))
+    with torch.inference_mode():
+        out = port_ecapa(variables, **kw)(torch.from_numpy(feats)).numpy()
+    assert out.shape == ref.shape == (2, 32)
+    assert_close_scaled(out, ref, 3e-4)
 
 
 def test_registry_width_parameter_count():

@@ -860,3 +860,83 @@ def test_predict_label_on_the_card_matches_the_cpu(cuda, tmp_path, capsys):
     assert outs["cpu"][2:] == (0, 0) and outs["cuda"][2:] == (6, 42)
     assert outs["cuda"][:2] == outs["cpu"][:2]
     assert outs["cuda"][0].startswith("accuracy: ")
+
+
+def _melspec_f64(wav):
+    """The SSL mel spectrogram in float64 numpy."""
+    from speaker3d_tpu_torch.ops.melspec import (
+        MelSpecConfig, mel_filterbank, window_dft_matrix)
+
+    cfg = MelSpecConfig()
+    p = cfg.n_fft // 2
+    x = np.pad(wav.astype(np.float64), ((0, 0), (p, p)), mode="reflect")
+    n = 1 + (x.shape[1] - cfg.n_fft) // cfg.hop_length
+    idx = np.arange(n)[:, None] * cfg.hop_length + np.arange(cfg.n_fft)
+    y = x[:, idx] @ window_dft_matrix(cfg)
+    bins = cfg.n_fft // 2 + 1
+    return (y[..., :bins] ** 2 + y[..., bins:] ** 2) @ mel_filterbank(cfg)
+
+
+@pytest.mark.parametrize("shape", [(16, 64000), (32, 32000)])
+def test_melspec_on_the_card_matches_float64(cuda, shape):
+    """The SSL feature in fp32 with TF32 off: within 1e-5 of max|want|."""
+    from speaker3d_tpu_torch.ops.melspec import MelSpectrogram
+
+    wav = (0.1 * np.random.default_rng(shape[0]).standard_normal(shape)
+           ).astype(np.float32)
+    got = MelSpectrogram(device=cuda)(torch.from_numpy(wav).to(cuda))
+    want = _melspec_f64(wav)
+    assert np.abs(got.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("variant", ["rdino", "sdpn"])
+def test_ssl_step_on_the_card_matches_the_cpu_step(cuda, variant):
+    """One SSL step from one state and batch (ECAPA 64 x 4, 192, B = 4):
+    loss within 1e-3 relative, parameters within 1e-3 of the largest
+    parameter magnitude, center / prototypes within 1e-3 of theirs (leaf by
+    leaf the fp32 gradients of random ECAPA weights are ill-conditioned,
+    tests/test_torch_ssl.py)."""
+    import copy
+
+    from speaker3d_tpu_torch.cli.train_ssl import (
+        build_ssl_model, ssl_train_config)
+    from speaker3d_tpu_torch.ops.melspec import MelSpectrogram
+    from speaker3d_tpu_torch.train import ssl_train
+    from speaker3d_tpu_torch.utils.checkpoint import _flatten
+
+    config = {"channels": [64, 64, 64, 64, 192], "embedding_dim": 64,
+              "out_dim": 256, "add_dim": 64, "bottleneck_dim": 32,
+              "num_proto": 16, "output_dim": 32, "batch_size": 4,
+              "lr": 0.2, "warmup_epochs": 1, "epochs": 4}
+    model = build_ssl_model(variant, config, seed=3)
+    cfg = ssl_train_config(config, variant, 2)
+    rng = np.random.default_rng(4)
+    g = 2 if variant == "rdino" else 1
+    batch = {"global_wavs": torch.from_numpy((0.1 * rng.standard_normal(
+                 (4, g, 32000))).astype(np.float32)),
+             "local_wavs": torch.from_numpy((0.1 * rng.standard_normal(
+                 (4, 4, 16000))).astype(np.float32))}
+    out = {}
+    for device in ("cpu", cuda):
+        state = ssl_train.init_ssl_state(
+            copy.deepcopy(model), cfg, variant, device,
+            generator=torch.Generator().manual_seed(5))
+        state.step = 3
+        make = (ssl_train.make_rdino_train_step if variant == "rdino"
+                else ssl_train.make_sdpn_train_step)
+        step = make(cfg, feature_fn=MelSpectrogram(device=device))
+        loss = float(step(state, {k: v.to(device) for k, v in batch.items()})
+                     ["loss"])
+        out[str(device)] = (loss, ssl_train.state_tree(state))
+    (lc, cpu), (lg, card) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    for part in ("student", "teacher"):
+        want = dict(_flatten(cpu[part]["params"]))
+        got = dict(_flatten(card[part]["params"]))
+        scale = max(float(np.abs(v).max()) for v in want.values())
+        for k, v in want.items():
+            assert np.abs(got[k] - v).max() <= 1e-3 * scale, (part, k)
+    for key in ("center", "prototypes"):
+        if key in cpu:
+            assert (np.abs(card[key] - cpu[key]).max()
+                    <= 1e-3 * np.abs(cpu[key]).max())

@@ -59,7 +59,10 @@ def test_package_has_the_slice_modules():
                  "cli.train_segmentation", "data.processor_para",
                  "models.sanm", "asr.ctc", "diar.transcribe",
                  "cli.transcribe_diarization", "cli.train_asr_ctc",
-                 "cli.predict_label"):
+                 "cli.predict_label", "diar.gmm", "diar.boundaries",
+                 "cli.detect_boundaries", "ops.melspec", "models.ssl_heads",
+                 "train.ssl_losses", "train.ssl_train", "data.dataset_ssl",
+                 "cli.train_ssl", "cli.extract_ssl", "cli.infer_sv_ssl"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -117,9 +120,9 @@ def no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
         analyze_similarity, check_single_speaker, compute_der,
-        compute_score_metrics, extract, infer_diarization, infer_sv,
-        infer_sv_batch, serve_embedding, train, train_segmentation,
-        train_vad)
+        compute_score_metrics, detect_boundaries, extract, extract_ssl,
+        infer_diarization, infer_sv, infer_sv_batch, infer_sv_ssl,
+        serve_embedding, train, train_segmentation, train_ssl, train_vad)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
@@ -145,9 +148,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
-    for trainer in (train, train_vad, train_segmentation):
+    for trainer in (train, train_vad, train_segmentation, train_ssl):
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer.main(["--config", "c.yaml"])
+    for cli, argv in ((extract_ssl, ["--exp_dir", "x", "--data", "s",
+                                     "--out_dir", str(tmp_path)]),
+                      (infer_sv_ssl, ["--exp_dir", "x", "--wavs", "a.wav"]),
+                      (detect_boundaries, ["--emb", "e", "--num_speakers",
+                                           "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
     from speaker3d_tpu_torch.diar.dnn_seg import load_segmentation_exp
     from speaker3d_tpu_torch.diar.dnn_vad import load_vad_exp
     for load in (load_vad_exp, load_segmentation_exp):

@@ -85,6 +85,21 @@ def test_fsmn_models_map_to_the_port(obj):
     assert cls.__name__ == obj.rsplit(".", 1)[1]
 
 
+@pytest.mark.parametrize("name", ["RDINOHead", "SDPNHead", "RDINOCombiner",
+                                  "SDPNCombiner", "WeightNormedLinear"])
+def test_ssl_heads_map_to_the_port(name):
+    """models.ssl_heads is no longer refused: the builder returns the
+    port's classes."""
+    assert "speaker3d_tpu_torch.models.ssl_heads" not in tb.NOT_PORTED
+    cls = tb.dynamic_import(f"speaker3d_tpu.models.ssl_heads.{name}")
+    assert cls.__module__ == "speaker3d_tpu_torch.models.ssl_heads"
+    assert cls.__name__ == name
+    spec = {"obj": "speaker3d_tpu.models.ssl_heads.SDPNHead",
+            "args": {"in_dim": 16, "hidden_dim": 8, "bottleneck_dim": 4}}
+    head = tb.build("head", tcfg.Config({"head": spec}))
+    assert head(torch.ones((2, 16))).shape == (2, 4)
+
+
 def test_builder_builds_nested_specs_and_references():
     config = tcfg.Config({
         "exp_dir": "exp/a",
