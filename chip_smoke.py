@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's diarization (every clustering type, and
-the DNN front end), speaker-verification, serving, analysis and training
-paths (the SV, VAD, segmenter, CTC ASR and self-supervised RDINO/SDPN
-trainers), speaker-attributed transcription, label prediction,
-sequential-speaker boundaries, every registry backbone and the recipe
-backbones, on one GPU.
+"""Drive the PyTorch/CUDA port's diarization (every clustering type, the
+DNN front end, and audio-visual), speaker-verification, serving, analysis
+and training paths (the SV, VAD, segmenter, CTC ASR, self-supervised
+RDINO/SDPN and face detector trainers), speaker-attributed transcription,
+label prediction, sequential-speaker boundaries, every registry backbone
+and the recipe backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -192,7 +192,31 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     within 3 of the truth), and, as a chain check, on the teacher's and on
     the 17.8M model's ``extract`` embeddings of a sequential three-speaker
     list (K1 and K2 counted: K2 = 7 x K1). K2 (item 8) is also timed at
-    ``predict_label``'s batch-1 shapes.
+    ``predict_label``'s batch-1 shapes;
+19. audio-visual diarization: ``cli.train_face_detector`` in a process of
+    its own on ``configs/face_det.yaml`` as shipped (288 x 384, batch 32,
+    channels 24) but for the path and the epochs (cut to FACE_DET_EPOCHS;
+    printed): ms a step, samples/s, data-wait share, peak memory, launches
+    (K1 and K2 never); ``tests/test_face_detector.py``'s gate on rendered
+    frames for every epoch's checkpoint (recall >= 0.75 at IoU 0.4, false
+    positives <= the faces), the last one must pass; one step on the card
+    against the port's CPU step (loss and parameters within 1e-3 of their
+    scale); a seeded TalkNet saved as an ``asd_state`` experiment, its
+    three heads on the card against the CPU at B = 2, T = 25 (1e-4 of
+    their scale, TF32 off), one forward at batch 1 and T = 1,500 timed with
+    its peak memory and FLOP count; then the video CLI's body
+    (``diarize_video``) on a rendered 120 s video (3,000 frames of 288 x
+    384 at 25 fps: each speaker's face, ``render_face`` at one place and
+    brightness before its own backdrop, visible during its turns; the
+    conversation's audio) with ``--face_boxes_json`` (the truth) and the
+    energy scorer, with the trained detector and ``--asd_exp_dir``, the
+    same at ``--fps 12.5``, and with the 17.8M model: each RTTM with the
+    three speakers and every turn start within 0.2 s of the truth,
+    byte-equal to the same run with ``--device cpu``, the boxes equal to
+    the CPU's, launches (K1 > 0; K2 = 7 x K1 with the 17.8M model), the
+    wall time of each stage; cv2's version, and when it imports, the CLI's
+    ``main`` on an MJPG .avi of the frames, its RTTM equal to the boxes
+    run's.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
@@ -200,8 +224,8 @@ file's chunk calls (the path's most frequent batch), every other shape in
 diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
 front-end, VAD/segmenter training, transcription, CTC training,
-``predict_label``, SSL (none) and boundaries runs (``launches_by_path``
-apart).
+``predict_label``, SSL (none), boundaries and video runs
+(``launches_by_path`` apart).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -624,9 +648,11 @@ CONVERSATION_VOICES = ((130.0, [1.0, 0.6, 0.3, 0.2]),
                        (320.0, [1.0, 0.4, 0.1, 0.3]))
 
 
-def synth_conversation(seconds: float = 120.0, seed: int = 0) -> np.ndarray:
+def synth_conversation(seconds: float = 120.0, seed: int = 0,
+                       turns: list = None) -> np.ndarray:
     """Three harmonic 'speakers' (distinct pitch and timbre) taking turns of
-    2-6 s with 0.3-1.0 s pauses, seeded; PCM16-exact float32."""
+    2-6 s with 0.3-1.0 s pauses, seeded; PCM16-exact float32. ``turns``,
+    when given, receives each turn's (start s, end s, speaker)."""
     rng = np.random.default_rng(seed)
     voices = CONVERSATION_VOICES
     out, n_total = [], int(seconds * FS)
@@ -642,6 +668,9 @@ def synth_conversation(seconds: float = 120.0, seed: int = 0) -> np.ndarray:
         env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.05)
         seg = 0.25 * sig * env + 0.003 * rng.standard_normal(dur)
         out += [pause, seg.astype(np.float32)]
+        if turns is not None and n + len(pause) < n_total:
+            turns.append(((n + len(pause)) / FS,
+                          min(n + len(pause) + dur, n_total) / FS, spk))
         n += len(pause) + dur
         spk = (spk + int(rng.integers(1, 3))) % 3
     wav = np.concatenate(out)[:n_total]
@@ -3703,6 +3732,699 @@ def phase_ssl(work: str, models: str, smi: str) -> dict:
                 "scoring": scoring, "phase_s": phase_s}}
 
 
+VIDEO_SECONDS = 120.0
+VIDEO_FPS = 25.0
+VIDEO_HW = (288, 384)
+VIDEO_SEED = 600
+# each speaker's place: the rendered face's box (x, y, w, h) and brightness,
+# and the backdrop that stands behind it: None (the frame's dark noise) or
+# (left, right), two levels split at the box's centre. render_face draws
+# the same face for every speaker, which the CLI's pixel embedder sees at
+# cosine ~0.98 across speakers (one vision cluster, and JointClustering
+# then gives every chunk one label). Against its dark, bright-left and
+# bright-right backdrops each face's contrast with the corners of its box
+# points another way: the three crops lie at cosine -0.16 to -0.04, and
+# below 0.19 in 99% of boxes jittered by +-4 px and 0.92-1.08x as a
+# detector's are (a CPU search; AHC joins clusters at 0.3)
+VIDEO_PLACES = (((40, 80, 44, 55), 205.0, None),
+                ((170, 60, 40, 50), 150.0, (250.0, 100.0)),
+                ((290, 100, 48, 60), 150.0, (100.0, 250.0)))
+VIDEO_BACKDROP_MARGIN = 40
+VIDEO_FACE_THRESHOLD = 0.5        # --face_threshold of the detector runs
+VIDEO_TURN_TOL_S = 0.2
+# the energy VAD fills pauses up to vad_max_silence_ms (300) plus a 16 ms
+# frame: two turns with a shorter pause between them form one VAD segment,
+# whose inner boundary the 1.5 s / 0.75 s chunks cannot place within 0.2 s
+VIDEO_VAD_FILL_S = 0.316
+VIDEO_CPU_THREADS = 6             # the CPU reruns' first audio pass, beside
+                                  # the detector trainer's process
+FACE_DET_CONFIG = os.path.join("configs", "face_det.yaml")
+# the cut (the config: 40): the gate passed from epoch 4 of 4 on the H100,
+# where the detector still missed one of the video's three faces at
+# VIDEO_FACE_THRESHOLD (recall 0.70); the trainer runs beside the CPU
+# reruns' thread, which takes longer than 8 epochs
+FACE_DET_EPOCHS = 8
+FACE_DET_GATE_FRAMES = 8          # tests/test_face_detector.py's gate
+FACE_DET_STEP_TOL = 1e-3
+TALKNET_CHECK = (2, 25)           # B, T of the card-vs-CPU check
+TALKNET_CHECK_TOL = 1e-4
+TALKNET_LONG_T = 1500             # a 60 s track at 25 fps
+
+
+def video_frames(turns, seconds: float = VIDEO_SECONDS,
+                 seed: int = VIDEO_SEED):
+    """The rendered video: [n] uint8 grey frames at VIDEO_FPS and each
+    frame's true face boxes (the speakers talking at the frame's time)."""
+    from speaker3d_tpu_torch.data.synthetic_faces import render_face
+
+    rng = np.random.default_rng(seed)
+    h, w = VIDEO_HW
+    m = VIDEO_BACKDROP_MARGIN
+    frames, boxes = [], {}
+    for i in range(int(seconds * VIDEO_FPS)):
+        t = i / VIDEO_FPS
+        frame = 40.0 + 8.0 * rng.standard_normal((h, w))
+        talking = {spk for st, ed, spk in turns if st <= t < ed}
+        boxes[i] = []
+        for spk, ((x, y, bw, bh), bright, backdrop) in enumerate(VIDEO_PLACES):
+            if backdrop is not None:
+                rows = slice(max(y - m, 0), y + bh + m)
+                frame[rows, max(x - m, 0):x + bw // 2] += backdrop[0] - 40.0
+                frame[rows, x + bw // 2:x + bw + m] += backdrop[1] - 40.0
+            if spk in talking:
+                render_face(frame, x, y, bw, bh, brightness=bright)
+                boxes[i].append([x, y, bw, bh])
+        frames.append(np.clip(frame, 0, 255).astype(np.uint8))
+    return frames, boxes
+
+
+def _frame_stream(frames, fps: float):
+    """(source index, time, frame) as the CLI's read_frames samples a
+    VIDEO_FPS source at ``fps``."""
+    step = max(1, int(round(VIDEO_FPS / fps)))
+    return ((i, i / VIDEO_FPS, f) for i, f in enumerate(frames)
+            if i % step == 0)
+
+
+def _iou(a, b) -> float:
+    ax, ay, aw, ah = a
+    bx, by, bw, bh = b
+    x1, y1 = max(ax, bx), max(ay, by)
+    x2, y2 = min(ax + aw, bx + bw), min(ay + ah, by + bh)
+    inter = max(0.0, x2 - x1) * max(0.0, y2 - y1)
+    return inter / (aw * ah + bw * bh - inter + 1e-9)
+
+
+def face_det_gate(detector) -> dict:
+    """tests/test_face_detector.py's gate: 8 rendered frames from seed 77,
+    threshold 0.3; recall at IoU 0.4 >= 0.75, false positives (IoU <= 0.2
+    with every face) <= the face count."""
+    from speaker3d_tpu_torch.data.synthetic_faces import render_frame
+
+    rng = np.random.default_rng(77)
+    hits = total = false_pos = 0
+    for _ in range(FACE_DET_GATE_FRAMES):
+        frame, boxes = render_frame(rng)
+        dets = detector(frame)
+        for b in boxes:
+            total += 1
+            hits += any(_iou(d, b) > 0.4 for d in dets)
+        false_pos += sum(1 for d in dets
+                         if all(_iou(d, b) <= 0.2 for b in boxes))
+    return {"recall": hits / total, "false_pos": false_pos, "faces": total,
+            "passed": hits / total >= 0.75 and false_pos <= total}
+
+
+def _face_det_train_start(folder: str):
+    """cli.train_face_detector in a process of its own on
+    configs/face_det.yaml as shipped but for the path and the epochs."""
+    exp = os.path.join(folder, "exp_face_det")
+    argv = ["--config", FACE_DET_CONFIG, f"--exp_dir={exp}",
+            f"--num_epoch={FACE_DET_EPOCHS}"]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _TRAIN_RUNNER,
+         "speaker3d_tpu_torch.cli.train_face_detector"] + argv, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), exp
+
+
+def _face_det_train_finish(started) -> dict:
+    """The trainer's numbers; then the gate on every epoch's checkpoint, on
+    the card."""
+    from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
+    from speaker3d_tpu_torch.models import face_detector as fd
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    proc, t0, exp = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train_face_detector failed (rc "
+                             f"{proc.returncode}):\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    epochs = re.findall(_EPOCH_LINE, out)
+    counts = re.search(r"\[train launches\] (\{.*\})", out)
+    losses = [float(x) for x in re.findall(r"epoch \d+ avg_loss ([-\d.e]+)",
+                                           out)]
+    if len(epochs) != FACE_DET_EPOCHS or counts is None:
+        raise AssertionError(f"train_face_detector printed no epoch "
+                             f"summary:\n{out[-3000:]}")
+    counts = json.loads(counts.group(1))
+    last = epochs[-1]
+    run = {"exp": exp, "epochs": len(epochs),
+           "steps": sum(int(e[1]) for e in epochs), "batch": int(last[2]),
+           "step_ms_median_last_epoch": float(last[3]),
+           "first_step_ms": float(epochs[0][4]),
+           "samples_per_s_last_epoch": float(last[5]),
+           "data_wait_share": (sum(float(e[6]) for e in epochs)
+                               / sum(float(e[7]) for e in epochs)),
+           "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
+           "k1": counts["k1"], "k2": counts["k2"], "losses": losses,
+           "process_wall_s": wall}
+    if counts["k1"] or counts["k2"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_face_detector: launches {counts}, "
+                             f"losses {losses}")
+    ckpt = Checkpointer(os.path.join(exp, "models"))
+    margs = build_config(FACE_DET_CONFIG)["model"]["args"]
+    gates = []
+    for epoch in range(1, FACE_DET_EPOCHS + 1):
+        ts = ckpt.recover_if_possible(epoch=epoch)["train_state"]
+        model = fd.TinyFaceDetector(**margs)
+        model.load_state_dict(state_dict_from_flax(
+            {"params": ts["params"], "batch_stats": ts["batch_stats"]},
+            like=model.state_dict()), strict=True)
+        gates.append(face_det_gate(fd.make_detector(model.eval(), 0.3,
+                                                    "cuda")))
+        gates[-1]["video_face_scores"] = _face_scores(model)
+    run["gate_by_epoch"] = gates
+    run["first_passing_epoch"] = next(
+        (i + 1 for i, g in enumerate(gates) if g["passed"]), None)
+    if not gates[-1]["passed"]:
+        raise AssertionError(f"the detector after {FACE_DET_EPOCHS} epochs "
+                             f"fails the gate: {gates}")
+    return run
+
+
+def _face_det_step_check(exp: str) -> dict:
+    """One train step of configs/face_det.yaml's batch on the card against
+    the port's CPU step, from the trained weights and the same batch: the
+    loss and every parameter within FACE_DET_STEP_TOL of their scale."""
+    import copy
+
+    import torch
+
+    from speaker3d_tpu_torch.cli import train_face_detector as tfd_cli
+    from speaker3d_tpu_torch.train.vad_train import (
+        init_adam_train_state, load_state_tree)
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+    from speaker3d_tpu_torch.utils.config import build_config
+
+    config = build_config(FACE_DET_CONFIG)
+    tree = Checkpointer(os.path.join(exp, "models")).recover_if_possible()
+    model = tfd_cli.init_model(config, 0)
+    batch = tfd_cli.make_batch_fn(config)(np.random.default_rng(3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = init_adam_train_state(copy.deepcopy(model), dev)
+        load_state_tree(state, tree["train_state"])
+        step = tfd_cli.make_detector_train_step(tfd_cli.train_config(config))
+        t0 = time.perf_counter()
+        metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                               for k, v in batch.items()})
+        loss = float(metrics["loss"])
+        out[dev] = (loss, {k: v.detach().cpu() for k, v in
+                           state.model.state_dict().items()},
+                    time.perf_counter() - t0)
+    (lc, pc, tc), (lh, ph, th) = out["cuda"], out["cpu"]
+    worst = max(float((pc[k].double() - ph[k].double()).abs().max())
+                / max(float(ph[k].double().abs().max()), 1e-12) for k in ph
+                if ph[k].is_floating_point())
+    loss_rel = abs(lc - lh) / abs(lh)
+    if not (loss_rel <= FACE_DET_STEP_TOL and worst <= FACE_DET_STEP_TOL):
+        raise AssertionError(f"detector step card vs CPU: loss rel "
+                             f"{loss_rel}, worst parameter {worst}")
+    return {"batch": int(batch["frames"].shape[0]), "loss": lh,
+            "loss_rel": loss_rel, "worst_param_of_scale": worst,
+            "card_step_s": tc, "cpu_step_s": th}
+
+
+def _talknet_checks(folder: str) -> dict:
+    """A seeded TalkNet (BatchNorm statistics near 0) saved as an
+    ``asd_state`` experiment in the JAX layout; its three heads on the card
+    against the CPU at B = 2, T = 25 (TF32 off); one forward at batch 1 and
+    T = TALKNET_LONG_T, timed, with its peak memory and FLOP count."""
+    import torch
+
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.models.talknet import TalkNetModel, flax_variables
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+
+    torch.manual_seed(11)
+    model = _random_bn_stats(TalkNetModel(), 12).eval()
+    exp = os.path.join(folder, "exp_asd")
+    Checkpointer(os.path.join(exp, "models")).save_checkpoint(1, {
+        "asd_state": {**flax_variables(model),
+                      "step": np.asarray(0, np.int32)}})
+    rng = np.random.default_rng(13)
+    b, t = TALKNET_CHECK
+    audio = torch.from_numpy(rng.standard_normal((b, 4 * t, 13)).astype(
+        np.float32))
+    faces = torch.from_numpy((rng.random((b, t, 112, 112)) * 255).astype(
+        np.float32))
+    with torch.inference_mode(), matmul_precision("float32"):
+        want = [x.numpy() for x in model(audio, faces)]
+        model.cuda()
+        got = [x.cpu().numpy() for x in model(audio.cuda(), faces.cuda())]
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+    if not max(errs) <= TALKNET_CHECK_TOL:
+        raise AssertionError(f"TalkNet card vs CPU: {errs} of scale")
+    t = TALKNET_LONG_T
+    a1 = torch.from_numpy(rng.standard_normal((1, 4 * t, 13)).astype(
+        np.float32)).cuda()
+    f1 = torch.from_numpy((rng.random((1, t, 112, 112)) * 255).astype(
+        np.float32)).cuda()
+    with torch.inference_mode(), matmul_precision("float32"):
+        flops = _flops(lambda: model(a1, f1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model(a1, f1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(lambda: model(a1, f1), warmup=1, iters=2, runs=3)
+    model.cpu()
+    torch.cuda.empty_cache()
+    return {"exp": exp, "heads_err_of_scale": errs, "long_T": t,
+            "long_ms": ms, "long_peak_gib": peak / 2**30,
+            "long_gflop": flops / 1e9,
+            "long_tflops": flops / ms / 1e9}
+
+
+def _turn_check(rttm: str, turns) -> dict:
+    """The RTTM's speakers, and for each true turn that follows a pause the
+    VAD does not fill the distance from its start to the nearest RTTM
+    segment start (the others' printed apart)."""
+    with open(rttm) as f:
+        rows = [ln.split() for ln in f.read().splitlines()]
+    starts = np.array([float(r[3]) for r in rows])
+    dist, filled = [], []
+    for i, (st, _, _) in enumerate(turns):
+        d = float(np.abs(starts - st).min())
+        (filled if i and st - turns[i - 1][1] < VIDEO_VAD_FILL_S
+         else dist).append(round(d, 4))
+    # label agreement: each RTTM speaker mapped to the true speaker it
+    # overlaps most, the share of speech time labelled so
+    def overlap(a0, a1, b0, b1):
+        return max(0.0, min(a1, b1) - max(a0, b0))
+    seg = [(float(r[3]), float(r[3]) + float(r[4]), r[7]) for r in rows]
+    votes = {}
+    for s0, s1, lab in seg:
+        for t0, t1, spk in turns:
+            votes.setdefault(lab, {}).setdefault(spk, 0.0)
+            votes[lab][spk] += overlap(s0, s1, t0, t1)
+    mapping = {lab: max(v, key=v.get) for lab, v in votes.items()}
+    agree = sum(overlap(s0, s1, t0, t1) for s0, s1, lab in seg
+                for t0, t1, spk in turns if mapping[lab] == spk)
+    total = sum(s1 - s0 for s0, s1, _ in seg)
+    return {"speakers": len({r[7] for r in rows}), "segments": len(rows),
+            "max_start_dist_s": max(dist), "vad_filled_start_dist_s": filled,
+            "label_agreement": agree / max(total, 1e-9)}
+
+
+def _detection_rates(found, truth) -> dict:
+    """The detections per sampled frame against the true boxes: recall at
+    IoU 0.4 per speaker's place, false positives (IoU <= 0.2 with every
+    true box)."""
+    places = [list(box) for box, _, _ in VIDEO_PLACES]
+    hits, faces = [0] * len(places), [0] * len(places)
+    for f, t in zip(found, truth):
+        for b in t:
+            i = places.index(list(b))
+            faces[i] += 1
+            hits[i] += any(_iou(d, b) > 0.4 for d in f)
+    false_pos = sum(all(_iou(d, b) <= 0.2 for b in t)
+                    for f, t in zip(found, truth) for d in f)
+    return {"recall": sum(hits) / max(sum(faces), 1),
+            "recall_by_speaker": [round(h / max(n, 1), 4)
+                                  for h, n in zip(hits, faces)],
+            "false_pos": false_pos}
+
+
+def _face_scores(model) -> list:
+    """The detector's highest centre probability near each speaker's face
+    on a frame that shows all three (the cells within one of the face's
+    centre cell), on the card."""
+    import torch
+
+    from speaker3d_tpu_torch.models.face_detector import STRIDE
+
+    frames, _ = video_frames([(0.0, 1.0, i) for i in range(len(VIDEO_PLACES))],
+                             1.0 / VIDEO_FPS)
+    x = torch.from_numpy(frames[0][None, :, :, None].astype(np.float32)
+                         / 255.0).cuda()
+    with torch.inference_mode():
+        p = torch.sigmoid(model.cuda()(x)[0][0]).cpu().numpy()
+    out = []
+    for (bx, by, bw, bh), _, _ in VIDEO_PLACES:
+        iy, ix = int((by + bh / 2) // STRIDE), int((bx + bw / 2) // STRIDE)
+        out.append(round(float(p[max(iy - 1, 0):iy + 2,
+                                  max(ix - 1, 0):ix + 2].max()), 4))
+    return out
+
+
+def _video_run(folder, name, extra, frames, fps, wav, turns, truth, device):
+    from speaker3d_tpu_torch.cli import infer_diarization_video as vcli
+
+    args = vcli.get_args(["--video", os.path.join(folder, "conv3v.avi"),
+                          "--out_dir", os.path.join(folder, f"{name}_{device}")]
+                         + extra)
+    os.makedirs(args.out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    run = lambda: vcli.diarize_video(  # noqa: E731
+        args, _frame_stream(frames, fps), wav, device)
+    # the CPU reruns run in a thread beside the card runs: only a card run
+    # zeroes and reads the launch counts
+    import threading
+
+    rerun = threading.current_thread().name == _CpuMemo.THREAD
+    out, k1, k2 = (run(), 0, 0) if rerun else _counted_result(run)
+    wall = time.perf_counter() - t0
+    with open(out["rttm"], "rb") as f:
+        rttm = f.read()
+    sampled = [truth[i] for i, _, _ in _frame_stream(frames, fps)]
+    return {"rttm": rttm, "boxes": out["boxes"], "stage_s": out["stage_s"],
+            "tracks": len(out["tracks"]), "k1": k1, "k2": k2, "wall_s": wall,
+            "turns": _turn_check(out["rttm"], turns),
+            "detection": _detection_rates(out["boxes"], sampled)}
+
+
+def _max_box_diff(a, b) -> float:
+    if len(a) != len(b) or any(len(x) != len(y) for x, y in zip(a, b)):
+        raise AssertionError("the card's detector found other faces than "
+                             "the CPU's")
+    diffs = [abs(float(u) - float(v)) for x, y in zip(a, b)
+             for bx, by in zip(x, y) for u, v in zip(bx, by)]
+    return max(diffs, default=0.0)
+
+
+class _CpuMemo:
+    """Within the block, the port's three device computations when they
+    run on the CPU (the embed call, the face detector on a frame, TalkNet
+    on a track) keep each result by a digest of their weights and inputs:
+    the four ``--device cpu`` reruns compute each distinct input once (the
+    three w24s4ep4 runs share the audio, the detector runs the frames) and
+    return the kept result for a repeat. Elsewhere than on the CPU in the
+    reruns' thread (``THREAD``) they pass through."""
+
+    THREAD = "video_cpu"
+
+    def __init__(self):
+        self.kept, self.hits, self.misses = {}, 0, 0
+
+    @staticmethod
+    def _digest(*arrays) -> str:
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=16)
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(str((a.dtype, a.shape)).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    def _weights(self, model) -> str:
+        return self._digest(*(t.detach().cpu().numpy()
+                              for t in model.state_dict().values()))
+
+    def _keep(self, key, compute):
+        if key in self.kept:
+            self.hits += 1
+        else:
+            self.misses += 1
+            self.kept[key] = compute()
+        return self.kept[key]
+
+    def __enter__(self):
+        import threading
+
+        import torch
+
+        from speaker3d_tpu_torch.diar import video
+        from speaker3d_tpu_torch.eval import embedding
+        from speaker3d_tpu_torch.models import face_detector
+
+        self._saved = (embedding.build_embedding_fn,
+                       face_detector.make_detector,
+                       video.make_talknet_asd_scorer)
+        embed_fn, detector_fn, asd_fn = self._saved
+
+        def on_cpu(device) -> bool:
+            return (torch.device(device).type == "cpu" and
+                    threading.current_thread().name == self.THREAD)
+
+        def build_embedding_fn(model, *a, device="cuda", **kw):
+            embed = embed_fn(model, *a, device=device, **kw)
+            if not on_cpu(device):
+                return embed
+            w = self._weights(model)
+            return lambda wavs: self._keep(
+                ("embed", w, self._digest(np.asarray(wavs))),
+                lambda: embed(wavs))
+
+        def make_detector(model, threshold=0.35, device="cuda"):
+            detect = detector_fn(model, threshold, device)
+            if not on_cpu(device):
+                return detect
+            w = self._weights(model)
+            return lambda frame: self._keep(
+                ("detect", w, threshold, self._digest(frame)),
+                lambda: detect(frame))
+
+        def make_talknet_asd_scorer(state_dict, device="cuda", model=None):
+            score = asd_fn(state_dict, device=device, model=model)
+            if not on_cpu(device):
+                return score
+            w = self._weights(model) if model is not None else self._digest(
+                *(t.numpy() for t in state_dict.values()))
+            return lambda audio, crops: self._keep(
+                ("asd", w, self._digest(audio, crops)),
+                lambda: score(audio, crops))
+
+        embedding.build_embedding_fn = build_embedding_fn
+        face_detector.make_detector = make_detector
+        video.make_talknet_asd_scorer = make_talknet_asd_scorer
+        return self
+
+    def __exit__(self, *exc):
+        from speaker3d_tpu_torch.diar import video
+        from speaker3d_tpu_torch.eval import embedding
+        from speaker3d_tpu_torch.models import face_detector
+
+        (embedding.build_embedding_fn, face_detector.make_detector,
+         video.make_talknet_asd_scorer) = self._saved
+
+
+def _cpu_audio(models: str, model_id: str, wav) -> float:
+    """The video CLI's audio pipeline on the CPU (its defaults), inside a
+    ``_CpuMemo``: fills the memo with the embed calls the reruns make."""
+    from speaker3d_tpu_torch.cli import infer_diarization_video as vcli
+    from speaker3d_tpu_torch.cli.extract import load_model
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+    from speaker3d_tpu_torch.eval import embedding
+
+    args = vcli.get_args(["--video", "v", "--out_dir", "o"])
+    t0 = time.perf_counter()
+    embed = embedding.build_embedding_fn(load_model(None, model_id, models),
+                                         device="cpu", precision="high")
+    DiarizationPipeline(embed, vad_threshold=args.vad_threshold,
+                        batch_size=args.batch_size,
+                        speaker_num=args.speaker_num, device="cpu")(wav)
+    return time.perf_counter() - t0
+
+
+def _video_cv2(folder, frames, wav_path, boxes_path, models, want_rttm):
+    """cv2 on the card's machine: its version, and when it imports, the
+    CLI's main on an MJPG .avi of the frames (the boxes run's flags),
+    whose RTTM must equal the boxes run's."""
+    try:
+        import cv2
+    except ImportError:
+        return {"cv2": None}
+    video = os.path.join(folder, "conv3v.avi")
+    h, w = VIDEO_HW
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"),
+                             VIDEO_FPS, (w, h))
+    if not writer.isOpened():
+        return {"cv2": cv2.__version__, "mjpg": "no MJPG encoder"}
+    for frame in frames:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_GRAY2BGR))
+    writer.release()
+    from speaker3d_tpu_torch.cli import infer_diarization_video as vcli
+
+    out_dir = os.path.join(folder, "main_cv2")
+    t0 = time.perf_counter()
+    rc, k1, k2 = _counted_result(lambda: vcli.main([
+        "--video", video, "--wav", wav_path, "--out_dir", out_dir,
+        "--face_boxes_json", boxes_path, "--local_model_dir", models]))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "conv3v.rttm"), "rb") as f:
+        got = f.read()
+    if rc != 0 or got != want_rttm or k1 == 0:
+        raise AssertionError(f"the CLI's main on the MJPG video: rc {rc}, "
+                             f"K1 {k1}, RTTM equal {got == want_rttm}")
+    return {"cv2": cv2.__version__, "main_wall_s": wall, "k1": k1,
+            "k2": k2, "rttm_equal": True}
+
+
+def phase_video(work: str, models: str, smi: str) -> dict:
+    """Audio-visual diarization: the face detector's trainer on
+    configs/face_det.yaml, TalkNet, the video CLI's body on a rendered 120 s
+    video four ways (each against ``--device cpu``), and cv2."""
+    import torch
+
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    folder = os.path.join(work, "video")
+    os.makedirs(folder, exist_ok=True)
+    t_phase = time.perf_counter()
+    turns = []
+    wav = synth_conversation(VIDEO_SECONDS, turns=turns)
+    t0 = time.perf_counter()
+    frames, boxes = video_frames(turns, VIDEO_SECONDS)
+    render_s = time.perf_counter() - t0
+    wav_path = os.path.join(folder, "conv3v.wav")
+    write_wav(wav_path, wav, FS)
+    boxes_path = os.path.join(folder, "boxes.json")
+    with open(boxes_path, "w") as f:
+        json.dump(boxes, f)
+    log(f"[video] {len(frames)} frames {VIDEO_HW[0]} x {VIDEO_HW[1]} at "
+        f"{VIDEO_FPS:g} fps rendered in {render_s:.1f} s; {len(turns)} turns "
+        f"of three speakers; {sum(map(len, boxes.values()))} face boxes")
+
+    # the detector trains in a process of its own; the --device cpu reruns
+    # run in a thread of this process beside everything else (their audio
+    # first, then each run once the detector and TalkNet experiments
+    # exist), on VIDEO_CPU_THREADS of torch's CPU threads
+    import threading
+
+    from speaker3d_tpu_torch.utils.threads import cpu_threads
+
+    det_exp = os.path.join(folder, "exp_face_det")
+    asd_exp = os.path.join(folder, "exp_asd")
+    det_flags = ["--face_detector_exp_dir", det_exp, "--face_threshold",
+                 str(VIDEO_FACE_THRESHOLD), "--asd_exp_dir", asd_exp]
+    plans = (("boxes", ["--face_boxes_json", boxes_path], 25.0),
+             ("detector_asd", det_flags, 25.0),
+             ("detector_asd_fps12.5", det_flags + ["--fps", "12.5"], 12.5),
+             ("detector_asd_17.8M", det_flags + ["--model_id", MODEL_17M],
+              25.0))
+    plans = [(n, e + ["--local_model_dir", models], f) for n, e, f in plans]
+    ready, cpu_runs, cpu_audio_s, failed = threading.Event(), {}, {}, []
+
+    def cpu_side():
+        try:
+            with cpu_threads(VIDEO_CPU_THREADS):
+                for model_id in (MODEL_W24, MODEL_17M):
+                    cpu_audio_s[model_id] = _cpu_audio(models, model_id, wav)
+                ready.wait()
+                for name, extra, fps in plans:
+                    cpu_runs[name] = _video_run(folder, name, extra, frames,
+                                                fps, wav, turns, boxes, "cpu")
+        except BaseException as e:  # noqa: BLE001 - re-raised after the join
+            failed.append(e)
+
+    started = _face_det_train_start(folder)
+    memo = _CpuMemo()
+    with memo:
+        cpu_thread = threading.Thread(target=cpu_side, name=memo.THREAD)
+        cpu_thread.start()
+        try:
+            det = _face_det_train_finish(started)
+            log(f"[video train] {smi}: cli.train_face_detector on "
+                f"{FACE_DET_CONFIG} as shipped (288 x 384, B = 32, channels "
+                f"24, 100 steps an epoch; CUT: {FACE_DET_EPOCHS} epochs, not "
+                f"40; beside the CPU reruns' thread), {det['steps']} steps of "
+                f"{det['batch']}: step {det['step_ms_median_last_epoch']:.2f} "
+                f"ms (median of the last epoch, CUDA events; the first "
+                f"{det['first_step_ms']:.1f}), "
+                f"{det['samples_per_s_last_epoch']:.1f} samples/s, data wait "
+                f"{det['data_wait_share']:.1%} of the epochs, "
+                f"max_memory_allocated {det['max_memory_allocated_gib']:.3f} "
+                f"GiB; launches K1 {det['k1']} K2 {det['k2']}; losses by "
+                f"epoch {[round(x, 4) for x in det['losses']]}; the process "
+                f"{det['process_wall_s']:.1f} s")
+            log(f"[video gate] tests/test_face_detector.py's gate by epoch: "
+                f"{[(g['recall'], g['false_pos'], g['faces']) for g in det['gate_by_epoch']]}"
+                f" (recall >= 0.75, false positives <= faces); first passing "
+                f"epoch {det['first_passing_epoch']}; the video's three "
+                f"faces' scores by epoch "
+                f"{[g['video_face_scores'] for g in det['gate_by_epoch']]}")
+            step = _face_det_step_check(det["exp"])
+            log(f"[video train step] B = {step['batch']}: the card vs the "
+                f"port's CPU step: loss {step['loss']:.5f} rel "
+                f"{step['loss_rel']:.3g}, worst parameter "
+                f"{step['worst_param_of_scale']:.3g} of its scale (<= "
+                f"{FACE_DET_STEP_TOL:g}); card {step['card_step_s']:.2f} s, "
+                f"CPU {step['cpu_step_s']:.2f} s")
+            tn = _talknet_checks(folder)
+            ready.set()
+            log(f"[video talknet] {smi}: three heads card vs CPU at B, T = "
+                f"{TALKNET_CHECK}: "
+                f"{[f'{e:.3g}' for e in tn['heads_err_of_scale']]} of scale "
+                f"(<= {TALKNET_CHECK_TOL:g}, TF32 off); one forward at batch "
+                f"1, T = {tn['long_T']}: {tn['long_ms']:.2f} ms, peak "
+                f"{tn['long_peak_gib']:.3f} GiB above the weights, "
+                f"{tn['long_gflop']:.1f} GFLOP (FlopCounterMode), "
+                f"{tn['long_tflops']:.2f} TFLOP/s")
+            cards = {name: _video_run(folder, name, extra, frames, fps, wav,
+                                      turns, boxes, "cuda")
+                     for name, extra, fps in plans}
+        finally:
+            ready.set()
+            cpu_thread.join()
+    if failed:
+        raise failed[0]
+    log(f"[video cpu] the --device cpu reruns' audio pipelines on "
+        f"{VIDEO_CPU_THREADS} threads: "
+        f"{json.dumps({k.split('/')[-1]: round(v, 1) for k, v in cpu_audio_s.items()})} s")
+    runs, rttms = {}, {}
+    for name, _, _ in plans:
+        card, cpu = cards[name], cpu_runs[name]
+        box_diff = _max_box_diff(card["boxes"], cpu["boxes"])
+        run = runs[name] = {
+            "k1": card["k1"], "k2": card["k2"], "tracks": card["tracks"],
+            "wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+            "stage_s": card["stage_s"], "cpu_stage_s": cpu["stage_s"],
+            "turns": card["turns"], "rttm_equal_cpu":
+            card["rttm"] == cpu["rttm"], "box_max_diff_px": box_diff,
+            "detection": card["detection"]}
+        log(f"[video {name}] launches K1 {card['k1']} K2 {card['k2']}; "
+            f"{card['tracks']} tracks; faces found {card['detection']}; "
+            f"RTTM {card['turns']}; byte-equal to "
+            f"--device cpu: {run['rttm_equal_cpu']}; boxes vs the CPU's max "
+            f"{box_diff:.3g} px; wall {card['wall_s']:.2f} s (CPU "
+            f"{cpu['wall_s']:.2f} s); stages s "
+            f"{json.dumps({k: round(v, 3) for k, v in card['stage_s'].items()})}")
+        ok = (card["turns"]["speakers"] == 3
+              and card["turns"]["max_start_dist_s"] <= VIDEO_TURN_TOL_S
+              and run["rttm_equal_cpu"] and box_diff <= 1e-2
+              and card["k1"] > 0
+              and (card["k2"] == 7 * card["k1"] if name.endswith("17.8M")
+                   else card["k2"] == 0))
+        if not ok:
+            raise AssertionError(f"video run {name}: {run}")
+        rttms[name] = card["rttm"]
+    cv = _video_cv2(folder, frames, wav_path, boxes_path, models,
+                    rttms["boxes"])
+    log(f"[video] cv2 {cv['cv2'] or 'absent'}"
+        + (f"; the CLI's main on an MJPG .avi: RTTM equal to the boxes run, "
+           f"K1 {cv['k1']}, wall {cv['main_wall_s']:.2f} s"
+           if cv.get("rttm_equal") else ""))
+    phase_s = time.perf_counter() - t_phase
+    log(f"[video] the CPU reruns: {memo.misses} device computations on the "
+        f"CPU, {memo.hits} repeats returned kept; the phase took "
+        f"{phase_s:.1f} s")
+    torch.cuda.empty_cache()
+    return {"k1": sum(r["k1"] for r in runs.values()) + cv.get("k1", 0),
+            "k2": sum(r["k2"] for r in runs.values()) + cv.get("k2", 0),
+            "stats": {"train": {k: v for k, v in det.items() if k != "exp"},
+                      "train_step": step,
+                      "talknet": {k: v for k, v in tn.items() if k != "exp"},
+                      "runs": runs, "cv2": cv, "render_s": render_s,
+                      "cpu_audio_s": cpu_audio_s,
+                      "cpu_memo": {"computed": memo.misses,
+                                   "repeats": memo.hits},
+                      "phase_s": phase_s}}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     sys.path.insert(0, ROOT)
@@ -3720,6 +4442,7 @@ def main() -> int:
         dnn = phase_dnn_front(work, pipe["models"], device["smi"])
         asr = phase_asr(work, pipe["models"], train, train16, device["smi"])
         ssl = phase_ssl(work, pipe["models"], device["smi"])
+        video = phase_video(work, pipe["models"], device["smi"])
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
                   dnn["k1_shapes"] + asr["k1_shapes"])
@@ -3746,7 +4469,8 @@ def main() -> int:
                                  else 0,
                                  "predict_label": asr[f"predict_{key}"],
                                  "ssl": ssl[key],
-                                 "boundaries": ssl[f"boundaries_{key}"]}
+                                 "boundaries": ssl[f"boundaries_{key}"],
+                                 "video": video[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -3761,6 +4485,7 @@ def main() -> int:
                     "dnn_front": {k: v for k, v in dnn.items()
                                   if k not in ("k1", "k2", "train_k1")},
                     "asr": asr["stats"], "ssl": ssl["stats"],
+                    "video": video["stats"],
                     "script_s": time.perf_counter() - t_script}))
     log(f"[script] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3]}))

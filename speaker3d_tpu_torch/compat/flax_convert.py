@@ -19,17 +19,25 @@ parameter (``CosineClassifier``) and a weight-normed layer's ``weight_g`` /
 ``weight_v`` (the SSL heads' ``last_layer``) are already in torch layout
 and are copied as they are.
 
+A 3-D convolution's kernel DHWIO [kD, kH, kW, I, O] becomes OIDHW (TalkNet's
+``frontend3D.0``). A Flax parameter kept in torch layout under a torch name
+(TalkNet's ``in_proj_weight``, ``out_proj.weight``, ``gamma``, ``beta``, the
+PReLU's ``net.3.weight``) is copied as it is.
+
 ``flax_from_state_dict`` is the inverse for modules whose layer lists are
 Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter, SAN-M's
 ``encoders.{i}``), and whose other dotted Flax names are given as
 ``joined`` (SAN-M's ``feed_forward.w_1``; ECAPA's ``norm.norm``,
-``asp_bn.norm``, ``fc.conv``), and whose k=1 convs that Flax holds as Dense
-layers are named in ``dense`` (ECAPA's ``fc.conv``): the port's trainers
-write their checkpoints in the JAX trainers' layout with it.
+``asp_bn.norm``, ``fc.conv``; TalkNet's ``se.fc.0``, ``visualTCN.net.0``),
+whose k=1 convs that Flax holds as Dense layers are named in ``dense``
+(ECAPA's ``fc.conv``), and whose torch-layout parameters are matched by
+``raw`` (TalkNet's): the port's trainers write their checkpoints in the JAX
+trainers' layout with it.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
@@ -44,6 +52,10 @@ _LEAF_TO_TORCH = {
     "weight": "weight",  # a raw parameter kept in torch layout (CosineClassifier)
     "weight_g": "weight_g",  # weight norm's gain [O, 1] and direction [O, I]
     "weight_v": "weight_v",
+    "in_proj_weight": "in_proj_weight",  # MultiheadAttention's, torch layout
+    "in_proj_bias": "in_proj_bias",
+    "gamma": "gamma",  # TalkNet's GlobalLayerNorm, [1, C, 1]
+    "beta": "beta",
 }
 _RAW_LEAVES = ("weight_g", "weight_v")
 
@@ -69,12 +81,15 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})):
             *mods, leaf = path
-            tleaf = _LEAF_TO_TORCH.get(leaf)
+            # a dotted leaf ('out_proj.weight') is a torch-layout parameter
+            tleaf = leaf if "." in leaf else _LEAF_TO_TORCH.get(leaf)
             if tleaf is None:
                 raise KeyError(f"no torch mapping for flax leaf {coll}/{path}")
             t = np.asarray(val)
             if leaf == "kernel":
-                if t.ndim == 4:
+                if t.ndim == 5:
+                    t = t.transpose(4, 3, 0, 1, 2)
+                elif t.ndim == 4:
                     t = t.transpose(3, 2, 0, 1)
                 elif t.ndim == 3:
                     t = t.transpose(2, 1, 0)
@@ -111,34 +126,44 @@ def _flax_module_path(parts, joined: Sequence[str] = ()):
 
 def flax_from_state_dict(state_dict: Mapping[str, Any],
                          joined: Sequence[str] = (),
-                         dense: Sequence[str] = ()) -> dict:
+                         dense: Sequence[str] = (),
+                         raw: Sequence[str] = ()) -> dict:
     """A state_dict -> ``{'params'[, 'batch_stats']}`` as nested dicts of
     numpy arrays, the inverse of ``state_dict_from_flax``: a ``weight`` of
     1 dimension is a norm's ``scale``, of 2 a Dense kernel [I, O], of 3 a
     Conv kernel [k, I, O] (a Dense kernel [I, O] where the module's Flax
-    name is in ``dense``) and of 4 an HWIO kernel; ``weight_g`` and
-    ``weight_v`` are copied as they are; ``running_mean`` and
-    ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
+    name is in ``dense``), of 4 an HWIO kernel and of 5 a DHWIO kernel;
+    ``weight_g`` and ``weight_v`` are copied as they are; ``running_mean``
+    and ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
     dropped. ``joined``: the Flax submodule names that hold a dot besides
-    an index (a model's ``flax_joined_names``)."""
+    an index (a model's ``flax_joined_names``). ``raw``: regular
+    expressions of whole keys whose one group is a Flax leaf kept in torch
+    layout (TalkNet's ``flax_raw_names``): the leaf is copied
+    as it is under the module path before it."""
     out: dict = {}
     for key, val in state_dict.items():
-        *mods, leaf = key.split(".")
+        match = next((m for m in (re.fullmatch(r, key) for r in raw) if m),
+                     None)
+        if match is not None:
+            mods, leaf = key[:match.start(1) - 1].split("."), match.group(1)
+        else:
+            *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
         t = np.array(val.detach().cpu().numpy()
                      if isinstance(val, torch.Tensor) else val)
         coll = "params"
         path = _flax_module_path(mods, joined)
-        if leaf in _RAW_LEAVES:
+        if match is not None or leaf in _RAW_LEAVES:
             pass
         elif leaf == "weight":
             if t.ndim == 1:
                 leaf = "scale"
             else:
                 leaf = "kernel"
-                # OIHW -> HWIO; OI -> IO and OIW -> WIO
+                # OIHW -> HWIO, OIDHW -> DHWIO; OI -> IO and OIW -> WIO
                 t = (t.transpose(2, 3, 1, 0) if t.ndim == 4
+                     else t.transpose(2, 3, 4, 1, 0) if t.ndim == 5
                      else t.transpose(tuple(range(t.ndim))[::-1]))
                 if t.ndim == 3 and path and path[-1] in dense:
                     t = t.reshape(t.shape[1:])  # [1, I, O] -> [I, O]

@@ -11,7 +11,9 @@ The counterpart of ``speaker3d_tpu/diar/cluster.py``:
     ``diar/hdbscan_native.py``);
   - ``CommonClustering``: the dispatcher (inputs shorter than
     ``cluster_line`` go to AHC), minor-cluster reassignment and iterative
-    centroid cosine merging.
+    centroid cosine merging;
+  - ``JointClustering``: the audio-visual reconciliation of audio clusters
+    with face tracks (the video diarization CLI's).
 
 Labels, linkage, eigengap and k-means stay on the host; the device paths
 compute the affinity, the Laplacian's eigenpairs and the UMAP layout on
@@ -392,6 +394,84 @@ class CommonClustering:
             c1, c2 = cset[list(idx)]
             labels[labels == c2] = c1
         return labels
+
+
+class JointClustering:
+    """Audio-visual label reconciliation on the host: overlap voting
+    between audio clusters and face-track (vision) clusters, plus the
+    redistribution of an audio cluster that overlaps several vision
+    speakers by cosine to their centroids. A vision speaker's centroid
+    averages the audio embeddings of the chunks it overlaps by more than
+    1 s; its segments chain frames no farther apart than
+    ``conf.face_det_stride * 0.04 + 1e-4`` s."""
+
+    def __init__(self, audio_cluster, vision_cluster):
+        self.audio_cluster = audio_cluster
+        self.vision_cluster = vision_cluster
+
+    def __call__(self, audioX, visionX, audioT, visionT, conf):
+        alabels = arrange_labels(self.audio_cluster(audioX))
+        vlabels = self.vision_cluster(visionX)
+        vlist, vspk_embs, vspk_dur = self._vision_tracks(
+            audioX, alabels, vlabels, audioT, visionT, conf)
+
+        for i in range(alabels.max() + 1):
+            idx = np.where(alabels == i)[0]
+            times = [list(t) for t in np.array(audioT)[alabels == i]]
+            overlap_vspk = self._overlap_spks(merge_consecutive(times), vlist,
+                                              vspk_dur)
+            if len(overlap_vspk) > 1:
+                centers = np.stack([vspk_embs[s] for s in overlap_vspk])
+                dist = np.argmax(cosine_affinity(audioX[alabels == i], centers),
+                                 axis=1)
+                for j in range(dist.max() + 1):
+                    alabels[idx[dist == j]] = overlap_vspk[j]
+            elif len(overlap_vspk) == 1:
+                alabels[idx] = overlap_vspk[0]
+        return arrange_labels(alabels)
+
+    @staticmethod
+    def _overlap_spks(times, vlist, vspk_dur=None):
+        overlap_dur = {}
+        for a_st, a_ed in times:
+            for v_st, v_ed, v_id in vlist:
+                if a_ed > v_st and v_ed > a_st:
+                    overlap_dur[v_id] = overlap_dur.get(v_id, 0) + (
+                        min(a_ed, v_ed) - max(a_st, v_st))
+        out = []
+        for v_id, dur in overlap_dur.items():
+            lim = 0.5 if vspk_dur is None else min(vspk_dur[v_id] * 0.5, 0.5)
+            if dur > lim:
+                out.append(v_id)
+        return out
+
+    def _vision_tracks(self, audioX, alabels, vlabels, audioT, visionT, conf):
+        assert len(vlabels) == len(visionT)
+        stride_gap = getattr(conf, "face_det_stride", 1) * 0.04 + 1e-4
+        vlist = []
+        for i, ti in enumerate(visionT):
+            if (not vlist or vlabels[i] != vlist[-1][2]
+                    or ti - visionT[i - 1] > stride_gap):
+                if vlist and vlist[-1][1] - vlist[-1][0] < 1e-4:
+                    vlist.pop()
+                vlist.append([ti, ti, vlabels[i]])
+            else:
+                vlist[-1][1] = ti
+        v_arranged = arrange_labels([i[2] for i in vlist], start=alabels.max() + 1)
+        vlist = [[a, b, j] for (a, b, _), j in zip(vlist, v_arranged)]
+
+        vspk_embs = {}
+        for v_st, v_ed, v_id in vlist:
+            for i, (a_st, a_ed) in enumerate(audioT):
+                if a_ed >= v_st and v_ed >= a_st:
+                    if min(a_ed, v_ed) - max(a_st, v_st) > 1:
+                        vspk_embs.setdefault(v_id, []).append(audioX[i])
+        vspk_embs = {k: np.stack(v).mean(0) for k, v in vspk_embs.items()}
+        vlist = [i for i in vlist if i[2] in vspk_embs]
+        vspk_dur = {}
+        for st, ed, v_id in vlist:
+            vspk_dur[v_id] = vspk_dur.get(v_id, 0) + ed - st
+        return vlist, vspk_embs, vspk_dur
 
 
 def merge_consecutive(times):

@@ -22,12 +22,18 @@ _TF32 = {"high": False, "float32": False, "highest": False, None: True}
 
 
 @contextlib.contextmanager
-def matmul_precision(precision: Optional[str]):
+def matmul_precision(precision: Optional[str], device=None):
     """Set TF32 for cuDNN convolutions and cuBLAS matmuls for the block and
-    restore both flags afterwards."""
+    restore both flags afterwards. The flags are the process's: ``device``,
+    when it is the CPU, leaves them alone (they govern CUDA only), so a CPU
+    computation in one thread never changes a card computation's precision
+    in another."""
     if precision not in _TF32:
         raise ValueError(f"unknown precision {precision!r}; expected one of "
                          f"{sorted(k for k in _TF32 if k)} or None")
+    if device is not None and torch.device(device).type == "cpu":
+        yield
+        return
     cudnn, cuda = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = (cudnn.allow_tf32, cuda.allow_tf32)
     cudnn.allow_tf32 = cuda.allow_tf32 = _TF32[precision]
@@ -60,7 +66,7 @@ def build_embedding_fn(model: torch.nn.Module,
         raise ValueError(f"unknown precision {precision!r}")
 
     def embed(wavs):
-        with torch.inference_mode(), matmul_precision(precision):
+        with torch.inference_mode(), matmul_precision(precision, dev):
             wavs = torch.as_tensor(wavs, device=dev)
             if wavs.dtype == torch.int16:
                 # k/32768 is a power-of-two scale: bitwise equal to the host

@@ -81,13 +81,22 @@ class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
     pass
 
 
-def batch_norm2d(channels: int) -> nn.BatchNorm2d:
-    return BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+class BatchNorm3d(_FlaxStatsBatchNorm, nn.BatchNorm3d):
+    pass
 
 
-def batch_norm1d(channels: int, affine: bool = True) -> nn.BatchNorm1d:
-    return BatchNorm1d(channels, eps=BN_EPS, affine=affine,
+def batch_norm2d(channels: int, eps: float = BN_EPS) -> nn.BatchNorm2d:
+    return BatchNorm2d(channels, eps=eps, momentum=1.0 - BN_MOMENTUM)
+
+
+def batch_norm1d(channels: int, affine: bool = True,
+                 eps: float = BN_EPS) -> nn.BatchNorm1d:
+    return BatchNorm1d(channels, eps=eps, affine=affine,
                        momentum=1.0 - BN_MOMENTUM)
+
+
+def batch_norm3d(channels: int, eps: float = BN_EPS) -> nn.BatchNorm3d:
+    return BatchNorm3d(channels, eps=eps, momentum=1.0 - BN_MOMENTUM)
 
 
 def relu20(x):

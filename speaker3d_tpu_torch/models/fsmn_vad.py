@@ -98,16 +98,17 @@ class FSMNVad(FSMNTrunk):
 
 def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax's default initialisation, drawn from ``generator`` in module
-    order: Linear and Conv1d weights from a normal truncated at two standard
-    deviations with variance 1 / fan_in (``lecun_normal``; a depthwise
-    kernel's fan-in is its width), biases 0, LayerNorm weight 1, bias 0."""
+    order: Linear and Conv weights from a normal truncated at two standard
+    deviations with variance 1 / fan_in (``lecun_normal``; the fan-in is
+    the input width times the kernel's size, a depthwise kernel's its
+    size), biases 0, LayerNorm weight 1, bias 0."""
     # the standard deviation of a unit normal truncated to [-2, 2]
     trunc_std = 0.87962566103423978
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = module.weight
-                fan_in = w.shape[1] * (w.shape[2] if w.ndim == 3 else 1)
+                fan_in = w[0].numel()
                 std = math.sqrt(1.0 / fan_in) / trunc_std
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)

@@ -71,7 +71,8 @@ def init_adam_train_state(model: torch.nn.Module,
 
 
 def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
-                         feature_fn: Optional[Callable] = None) -> Callable:
+                         feature_fn: Optional[Callable] = None,
+                         input_key: Optional[str] = None) -> Callable:
     """``step(state, batch) -> {'loss'[, 'acc'], 'lr'}``: one Adam step on
     ``state`` in place. ``loss_fn(logits, batch) -> (loss, acc or None)``
     reads its targets from the batch (``labels``, and for CTC
@@ -79,9 +80,10 @@ def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
 
     ``batch``: ``{'wavs': [B, L] float32, 'labels', ...}`` on the state's
     device when ``feature_fn`` is given, else ``{'feats': [B, T, F],
-    'labels', ...}``. ``loss`` and ``acc`` are 0-d tensors on the device
-    (no host sync), ``lr`` a 0-d float32 CPU tensor."""
-    batch_key = "wavs" if feature_fn is not None else "feats"
+    'labels', ...}``; ``input_key`` names another model input (the face
+    detector's ``frames``). ``loss`` and ``acc`` are 0-d tensors on the
+    device (no host sync), ``lr`` a 0-d float32 CPU tensor."""
+    batch_key = input_key or ("wavs" if feature_fn is not None else "feats")
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
 
     def step(state: AdamTrainState, batch) -> Dict[str, torch.Tensor]:
@@ -145,16 +147,21 @@ def make_vad_train_step(cfg: VadTrainConfig,
 
 
 def state_tree(state: AdamTrainState) -> Dict:
-    """The JAX trainer's checkpoint tree of ``state`` (numpy arrays); a
-    model's ``flax_joined_names`` are its dotted Flax names
+    """The JAX trainer's checkpoint tree of ``state`` (numpy arrays): the
+    Flax ``params``, the ``batch_stats`` of a model with BatchNorms (the
+    face detector), ``adam_m``, ``adam_v``, ``step``; a model's
+    ``flax_joined_names`` are its dotted Flax names
     (``compat/flax_convert.py``)."""
     joined = getattr(state.model, "flax_joined_names", ())
 
     def tree(sd):
         return flax_from_state_dict(sd, joined)["params"]
 
-    return {"params": tree(state.model.state_dict()),
-            "adam_m": tree(state.adam_m), "adam_v": tree(state.adam_v),
+    model = flax_from_state_dict(state.model.state_dict(), joined)
+    out = {"params": model["params"]}
+    if model.get("batch_stats"):
+        out["batch_stats"] = model["batch_stats"]
+    return {**out, "adam_m": tree(state.adam_m), "adam_v": tree(state.adam_v),
             "step": np.asarray(state.step, np.int32)}
 
 
@@ -162,8 +169,9 @@ def load_state_tree(state: AdamTrainState, tree: Dict) -> None:
     """Load a checkpoint tree of either package's trainer into ``state``."""
     like = state.model.state_dict()
     state.model.load_state_dict(
-        state_dict_from_flax({"params": tree["params"]}, like=like),
-        strict=True)
+        state_dict_from_flax({"params": tree["params"],
+                              "batch_stats": tree.get("batch_stats", {})},
+                             like=like), strict=True)
     with torch.no_grad():
         for key, moments in (("adam_m", state.adam_m),
                              ("adam_v", state.adam_v)):

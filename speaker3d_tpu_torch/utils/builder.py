@@ -24,11 +24,8 @@ _JAX_PKG = "speaker3d_tpu."
 _PORT_PKG = "speaker3d_tpu_torch."
 
 # JAX modules a config can name that the port has not ported yet, and the
-# ROADMAP.md item that ports them
-NOT_PORTED = {
-    "speaker3d_tpu_torch.models.face_detector": "M11b (video diarization)",
-    "speaker3d_tpu_torch.models.talknet": "M12 (ASD training)",
-}
+# ROADMAP.md item that ports them (every model module is ported)
+NOT_PORTED: dict = {}
 
 
 def port_path(path: str) -> str:

@@ -940,3 +940,78 @@ def test_ssl_step_on_the_card_matches_the_cpu_step(cuda, variant):
         if key in cpu:
             assert (np.abs(card[key] - cpu[key]).max()
                     <= 1e-3 * np.abs(cpu[key]).max())
+
+
+@pytest.mark.parametrize("hw", [(288, 384), (43, 61)])
+def test_face_detector_on_the_card_matches_the_cpu(cuda, hw):
+    """The detector at configs/face_det.yaml's width, TF32 off, at the
+    config's frame size and an odd one (the SAME padding)."""
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.models.face_detector import TinyFaceDetector
+
+    model = _randomize(TinyFaceDetector(channels=24), 21)
+    x = torch.from_numpy(np.random.default_rng(22).random(
+        (2,) + hw + (1,)).astype(np.float32))
+    with torch.inference_mode(), matmul_precision("float32"):
+        want = [t.numpy() for t in model(x)]
+        got = [t.cpu().numpy() for t in model.to(cuda)(x.to(cuda))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+def test_face_detector_train_step_on_the_card_matches_the_cpu(cuda):
+    import copy
+
+    from speaker3d_tpu_torch.cli import train_face_detector as tfd_cli
+    from speaker3d_tpu_torch.train.vad_train import (
+        init_adam_train_state, state_tree)
+
+    config = {"height": 96, "width": 128, "batch_size": 6,
+              "step_per_epoch": 4, "num_epoch": 2,
+              "model": {"args": {"channels": 24}}}
+    model = tfd_cli.init_model(config, 3)
+    batch = tfd_cli.make_batch_fn(config)(np.random.default_rng(4))
+    out = {}
+    for device in ("cpu", cuda):
+        state = init_adam_train_state(copy.deepcopy(model), device)
+        step = tfd_cli.make_detector_train_step(tfd_cli.train_config(config))
+        loss = float(step(state, {k: torch.from_numpy(v).to(device)
+                                  for k, v in batch.items()})["loss"])
+        out[str(device)] = (loss, state_tree(state))
+    (lc, cpu), (lg, card) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for coll in ("params", "batch_stats", "adam_m"):
+        for name, leaves in cpu[coll].items():
+            for leaf, v in leaves.items():
+                g = card[coll][name][leaf]
+                assert np.abs(g - v).max() <= 1e-3 * np.abs(v).max(), (
+                    coll, name, leaf)
+
+
+def test_talknet_on_the_card_matches_the_cpu(cuda):
+    """TalkNet's three heads at B = 2, T = 25 (the depth-axis 3-D
+    convolution crosses the two clips), TF32 off; the ASD scorer likewise."""
+    import copy
+
+    from speaker3d_tpu_torch.diar.video import make_talknet_asd_scorer
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.models.talknet import TalkNetModel
+
+    torch.manual_seed(23)
+    model = _randomize(TalkNetModel(), 24)
+    rng = np.random.default_rng(25)
+    audio = torch.from_numpy(rng.standard_normal((2, 100, 13)).astype(
+        np.float32))
+    faces = torch.from_numpy((rng.random((2, 25, 112, 112)) * 255).astype(
+        np.float32))
+    with torch.inference_mode(), matmul_precision("float32"):
+        want = [t.numpy() for t in model(audio, faces)]
+        card = copy.deepcopy(model).to(cuda)
+        got = [t.cpu().numpy() for t in card(audio.to(cuda), faces.to(cuda))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * np.abs(w).max())
+    sd = model.state_dict()
+    a, f = audio[0].numpy(), faces[0].numpy()
+    np.testing.assert_allclose(
+        make_talknet_asd_scorer(sd, device=cuda)(a, f),
+        make_talknet_asd_scorer(sd, device="cpu")(a, f), rtol=0, atol=1e-5)

@@ -6,6 +6,11 @@
   ``speaker3d_tpu`` or ``sklearn`` in an import (AST scan), so no later
   slice reaches for the JAX package or for scikit-learn, which the card's
   machine lacks.
+- Every module also imports with ``cv2`` blocked, and ``cv2`` is imported
+  only inside the functions that read video frames, images or ONNX models
+  (the video CLI's ``read_frames`` and two ONNX builders, the face
+  detector trainer's JSONL batches, and one function of
+  ``chip_smoke.py``).
 - The entry points raise without a CUDA device unless the caller passes
   ``device="cpu"``: nothing falls back to the CPU on its own.
 """
@@ -24,6 +29,16 @@ import speaker3d_tpu_torch
 PKG_DIR = os.path.dirname(speaker3d_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "speaker3d_tpu", "sklearn")
+# (file relative to the repo root, function) where cv2 may be imported
+CV2_FUNCTIONS = {
+    ("speaker3d_tpu_torch/cli/infer_diarization_video.py", "read_frames"),
+    ("speaker3d_tpu_torch/cli/infer_diarization_video.py",
+     "build_face_detector"),
+    ("speaker3d_tpu_torch/cli/infer_diarization_video.py",
+     "build_face_embedder"),
+    ("speaker3d_tpu_torch/cli/train_face_detector.py", "make_batch"),
+    ("chip_smoke.py", "_video_cv2"),
+}
 
 
 def _modules():
@@ -62,14 +77,18 @@ def test_package_has_the_slice_modules():
                  "cli.predict_label", "diar.gmm", "diar.boundaries",
                  "cli.detect_boundaries", "ops.melspec", "models.ssl_heads",
                  "train.ssl_losses", "train.ssl_train", "data.dataset_ssl",
-                 "cli.train_ssl", "cli.extract_ssl", "cli.infer_sv_ssl"):
+                 "cli.train_ssl", "cli.extract_ssl", "cli.infer_sv_ssl",
+                 "ops.mfcc", "diar.video", "data.synthetic_faces",
+                 "models.face_detector", "models.talknet",
+                 "cli.train_face_detector", "cli.infer_diarization_video"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
 def test_every_module_imports_without_jax():
+    """... and without cv2."""
     code = (
         "import sys\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {FORBIDDEN + ('cv2',)!r}:\n"
         "    sys.modules[name] = None  # any import of it raises ImportError\n"
         "import importlib\n"
         f"for m in {_modules()!r}:\n"
@@ -111,6 +130,32 @@ def test_no_jax_imports_in_source():
     assert not offenders, offenders
 
 
+def test_cv2_only_inside_the_named_functions():
+    found = set()
+    for path in _sources():
+        rel = os.path.relpath(path, ROOT)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+
+        def visit(node, func):
+            for child in ast.iter_child_nodes(node):
+                names = []
+                if isinstance(child, ast.Import):
+                    names = [a.name for a in child.names]
+                elif isinstance(child, ast.ImportFrom) and child.module:
+                    names = [child.module]
+                if any(n.split(".")[0] == "cv2" for n in names):
+                    assert (rel, func) in CV2_FUNCTIONS, (rel, func,
+                                                          child.lineno)
+                    found.add((rel, func))
+                inner = (child.name if isinstance(
+                    child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+                visit(child, inner)
+
+        visit(tree, None)
+    assert found == CV2_FUNCTIONS
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -121,8 +166,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from speaker3d_tpu_torch.cli import (
         analyze_similarity, check_single_speaker, compute_der,
         compute_score_metrics, detect_boundaries, extract, extract_ssl,
-        infer_diarization, infer_sv, infer_sv_batch, infer_sv_ssl,
-        serve_embedding, train, train_segmentation, train_ssl, train_vad)
+        infer_diarization, infer_diarization_video, infer_sv, infer_sv_batch,
+        infer_sv_ssl, serve_embedding, train, train_face_detector,
+        train_segmentation, train_ssl, train_vad)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
@@ -148,7 +194,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
-    for trainer in (train, train_vad, train_segmentation, train_ssl):
+    for trainer in (train, train_vad, train_segmentation, train_ssl,
+                    train_face_detector):
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer.main(["--config", "c.yaml"])
     for cli, argv in ((extract_ssl, ["--exp_dir", "x", "--data", "s",
@@ -165,6 +212,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
             load(str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA"):
         next(device_prefetch(iter([])))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer_diarization_video.main(["--video", "v.avi", "--wav", "a.wav",
+                                      "--out_dir", str(tmp_path)])
+    assert infer_diarization_video.get_args(
+        ["--video", "v", "--out_dir", "o"]).device == "cuda"
+    from speaker3d_tpu_torch.diar.video import make_talknet_asd_scorer
+    from speaker3d_tpu_torch.models.face_detector import load_face_detector_exp
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_face_detector_exp(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_talknet_asd_scorer(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_embedding.main(["--model_id", "m"])
     for cli, argv in ((compute_der, ["--ref", "r", "--hyp", "h"]),

@@ -58,11 +58,6 @@ def test_every_config_model_maps_to_the_port():
         specs = [v for v in cfg.values() if isinstance(v, dict) and "obj" in v]
         for spec in specs:
             obj = spec["obj"]
-            if obj.split(".")[-2] in ("face_detector", "ssl_heads",
-                                      "talknet"):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    tb.dynamic_import(obj)
-                continue
             cls = tb.dynamic_import(obj)
             assert cls.__module__ == tb.port_path(obj).rsplit(".", 1)[0]
             assert cls.__module__.startswith("speaker3d_tpu_torch.models.")
@@ -98,6 +93,18 @@ def test_ssl_heads_map_to_the_port(name):
             "args": {"in_dim": 16, "hidden_dim": 8, "bottleneck_dim": 4}}
     head = tb.build("head", tcfg.Config({"head": spec}))
     assert head(torch.ones((2, 16))).shape == (2, 4)
+
+
+@pytest.mark.parametrize("obj", [
+    "speaker3d_tpu.models.face_detector.TinyFaceDetector",
+    "speaker3d_tpu.models.talknet.TalkNetModel"])
+def test_video_models_map_to_the_port(obj):
+    """models.face_detector and models.talknet are no longer refused: the
+    builder returns the port's classes, and nothing is refused."""
+    assert tb.NOT_PORTED == {}
+    cls = tb.dynamic_import(obj)
+    assert cls.__module__ == tb.port_path(obj).rsplit(".", 1)[0]
+    assert cls.__name__ == obj.rsplit(".", 1)[1]
 
 
 def test_builder_builds_nested_specs_and_references():
