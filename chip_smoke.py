@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's diarization (every clustering type, the
-DNN front end, and audio-visual), speaker-verification, serving, analysis
-and training paths (the SV, VAD, segmenter, CTC ASR, self-supervised
-RDINO/SDPN and face detector trainers), speaker-attributed transcription,
-label prediction, sequential-speaker boundaries, every registry backbone
-and the recipe backbones, on one GPU.
+DNN front end, audio-visual, and the three batch drivers),
+speaker-verification, serving, analysis and training paths (the SV, VAD,
+segmenter, CTC ASR, self-supervised RDINO/SDPN, face detector and TalkNet
+ASD trainers), speaker-attributed transcription, label prediction,
+sequential-speaker boundaries, every registry backbone and the recipe
+backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -99,7 +100,7 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     ``configs/eres2netv2.yaml`` as it is (the 17.8M ERes2NetV2, batch 256,
     3 s crops, speed perturbation, augmentation at 0.6), overriding only the
     paths, one epoch and ``remat=true``, on a seeded corpus of 64 speakers x
-    24 utterances of 3.2-5 s with seeded noise and RIR lists (6 steps; a
+    16 utterances of 3.2-5 s with seeded noise and RIR lists (4 steps; a
     smaller batch, printed as a cut, if 256 does not fit): the median step
     time, samples/s, the epoch's data-wait share, peak memory, launches (K1
     once per step, K2 never: training takes the unfused blocks); one step
@@ -134,7 +135,7 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     model, 53.5M, with its ``remat: true``) and ``configs/campplus.yaml``,
     both as shipped (``compute_dtype: bfloat16``, batch 256, full width)
     but for the paths and the epochs (cut to 4 epochs of item 14's corpus,
-    24 steps; printed), then w24s4ep4 once more with
+    16 steps; printed), then w24s4ep4 once more with
     ``--compute_dtype=float32`` (one epoch): per run the median step time
     of the last epoch and the first step, samples/s, the data-wait share,
     peak memory, launches (K1 once per step, K2 never); the bf16-over-fp32
@@ -181,8 +182,9 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     at a reduced width on the card against the port's CPU step (loss and
     parameters, centre, prototypes within 1e-3 of their scale);
     ``tests/test_ssl_eer_convergence.py``'s learning gate through
-    ``train_ssl`` and ``extract_ssl`` on the card (SDPN, per seed of five
-    the random-init teacher, then 20 epochs; the medians over the seeds:
+    ``train_ssl`` and ``extract_ssl`` on the card (SDPN, per seed of five,
+    each in a process of its own and all side by side, the random-init
+    teacher, then 20 epochs; the medians over the seeds:
     closed-set EER >= 0.28 before, an improvement >= 0.04, <= 0.34 after;
     the open set printed); ``infer_sv_ssl`` (the
     printed cosine against the host's float64 cosine of its saved
@@ -211,12 +213,34 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     conversation's audio) with ``--face_boxes_json`` (the truth) and the
     energy scorer, with the trained detector and ``--asd_exp_dir``, the
     same at ``--fps 12.5``, and with the 17.8M model: each RTTM with the
-    three speakers and every turn start within 0.2 s of the truth,
-    byte-equal to the same run with ``--device cpu``, the boxes equal to
-    the CPU's, launches (K1 > 0; K2 = 7 x K1 with the 17.8M model), the
-    wall time of each stage; cv2's version, and when it imports, the CLI's
-    ``main`` on an MJPG .avi of the frames, its RTTM equal to the boxes
-    run's.
+    three speakers and every turn start within 0.2 s of the truth, the
+    first three byte-equal to the same run with ``--device cpu`` and their
+    boxes equal to the CPU's (the 17.8M run has no CPU rerun: a cut),
+    launches (K1 > 0; K2 = 7 x K1 with the 17.8M model), the wall time of
+    each stage; cv2's version, and when it imports, the CLI's ``main`` on
+    an MJPG .avi of the frames, its RTTM equal to the boxes run's;
+20. the TalkNet ASD trainer: ``cli.train_asd`` at its defaults
+    (``--batch_size 500`` frames, TalkNet at its width, 112 x 112 crops)
+    in a process of its own beside phase 19, on a seeded AVA-layout corpus
+    cut from phase 19's frames (11-character video ids, per-entity wavs of
+    the conversation, jpg crops of a speaker's place named by timestamp,
+    labels from that speaker's turns; 60 train and 12 val clips of 1-10
+    s), cut to ASD_EPOCHS (printed): ms a step, frames/s, data-wait share,
+    peak memory, the losses and val mAP by epoch, launches (K1 and K2
+    never: the audio feature is the host MFCC); one step at a real batch
+    of two clips or more on the card against the port's CPU step from the
+    trained state (ASD_STEP_TOL: the loss, BatchNorm statistics,
+    parameters, gradients, the held-apart entries); ``--test`` on the card
+    printing the same ``mAP`` line as ``--device cpu``;
+    ``load_talknet_exp`` on the trained experiment;
+21. the three batch diarization drivers (``cli/run_diarization_simple``,
+    ``_on_dir`` with its summary and ``--per_sentence_reindex``,
+    ``_speech_estimate`` with its default sibling output folder) with the
+    17.8M model over a folder of three seeded conversations of 120, 30 and
+    45 s named ``*_speech_estimate.wav``: each file's JSON,
+    ``.vad_info.json``, ``.pairs.json`` and ``.meta.json`` (but for its
+    measured times) and the summary equal to the diarization CLI's own run
+    over the same files, launches (K1 > 0, K2 = 7 x K1), each driver's wall.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
@@ -224,8 +248,9 @@ file's chunk calls (the path's most frequent batch), every other shape in
 diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
 front-end, VAD/segmenter training, transcription, CTC training,
-``predict_label``, SSL (none), boundaries and video runs
-(``launches_by_path`` apart).
+``predict_label``, SSL (none), boundaries, video, ASD training (none) and
+driver runs (``launches_by_path`` apart). Each phase's wall time is printed
+as ``[phase] <name> <s>``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
@@ -1684,10 +1709,11 @@ def phase_analysis(work: str, models: str, sv: dict) -> dict:
 
 
 # the trainer (configs/eres2netv2.yaml at full width): a seeded corpus of
-# 64 speakers x 24 utterances of 3.2-5 s, one epoch of batch 256 (6 steps),
-# seeded noise and RIR lists for the config's augmentation
+# 64 speakers x 16 utterances of 3.2-5 s, one epoch of batch 256 (4 steps:
+# a cut of the script's depth from 24 utterances), seeded noise and RIR
+# lists for the config's augmentation
 TRAIN_CONFIG = os.path.join("configs", "eres2netv2.yaml")
-TRAIN_SPEAKERS, TRAIN_UTTS = 64, 24
+TRAIN_SPEAKERS, TRAIN_UTTS = 64, 16
 TRAIN_BATCHES = (256, 128, 64)    # the config's batch, then the cuts
 TRAIN_CROP = 3 * FS               # wav_len 3.0
 TRAIN_CHECK_BATCH = 64
@@ -2022,7 +2048,7 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
 BF16_CONFIGS = (("eres2netv2_w24s4ep4",
                  os.path.join("configs", "eres2netv2_w24s4ep4.yaml")),
                 ("campplus", os.path.join("configs", "campplus.yaml")))
-BF16_EPOCHS = 4                   # the cut: 4 epochs of 6 steps (the config: 70)
+BF16_EPOCHS = 4                   # the cut: 4 epochs of 4 steps (the config: 70)
 # the B = 64 bf16 step against the same step through the plain fbank and
 # against the fp32 step: bf16 rounds the features and every activation, so
 # the steps differ as bf16 noise does. The loss agrees; the embedding
@@ -3476,49 +3502,87 @@ def _ssl_step_checks(scps: dict, noise: str, rir: str) -> dict:
     return out
 
 
-def _ssl_gate(folder: str) -> dict:
-    """Part e: tests/test_ssl_eer_convergence.py's protocol through the
-    port's CLIs on the card: per seed of SSL_GATE_SEEDS the random-init
-    teacher (epochs: 0) and the teacher after SSL_GATE_EPOCHS epochs of
-    SDPN, each embedded by extract_ssl; closed-set and open-set EER; the
-    gate's conditions on the medians over the seeds."""
+def _ssl_gate_seed(folder: str, seed: int, scp: str, closed, open_) -> dict:
+    """One seed of the gate: the random-init teacher (epochs: 0) and the
+    teacher after SSL_GATE_EPOCHS epochs of SDPN through train_ssl, each
+    embedded by extract_ssl on the closed and open sets: their EERs, the
+    launches of every call, the walls."""
     import contextlib
     import io
-    import statistics
 
     import yaml
 
     from speaker3d_tpu_torch.cli import extract_ssl, train_ssl
     from speaker3d_tpu_torch.eval.scoring import load_embeddings
 
+    eer, walls, k = {}, {}, []
+    for tag, epochs in (("init", 0), ("trained", SSL_GATE_EPOCHS)):
+        exp = os.path.join(folder, f"exp_sdpn_{seed}_{tag}")
+        cfg = os.path.join(folder, f"cfg_{seed}_{tag}.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({"exp_dir": exp, "data": scp, "epochs": epochs,
+                            **SSL_GATE_CONFIG}, f)
+        t0 = time.perf_counter()
+        eer[tag] = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            k.append(_counted(lambda: train_ssl.main(
+                ["--config", cfg, "--variant", "sdpn", "--seed",
+                 str(seed)])))
+            for name, (eval_scp, utts) in (("closed", closed),
+                                           ("open", open_)):
+                emb_dir = os.path.join(exp, f"embs_{name}")
+                k.append(_counted(lambda: extract_ssl.main(
+                    ["--exp_dir", exp, "--data", eval_scp, "--out_dir",
+                     emb_dir, "--variant", "sdpn"])))
+                eer[tag][name] = ssl_eer(load_embeddings(emb_dir), utts)
+        walls[tag] = round(time.perf_counter() - t0, 1)
+        if (seed, tag) != (SSL_GATE_SEEDS[0], "trained"):
+            shutil.rmtree(exp)  # a checkpoint a epoch, ~50 MB each
+    return {"eer": eer, "launches": k, "walls": walls,
+            "exp": os.path.join(folder, f"exp_sdpn_{seed}_trained")}
+
+
+# one seed of the gate in a process of its own (the seeds run side by side)
+_SSL_GATE_RUNNER = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "args = json.loads(sys.argv[2])\n"
+    "out = chip_smoke._ssl_gate_seed(*args)\n"
+    "print('[gate seed] ' + json.dumps(out), flush=True)\n")
+
+
+def _ssl_gate(folder: str) -> dict:
+    """Part e: tests/test_ssl_eer_convergence.py's protocol through the
+    port's CLIs on the card, each seed of SSL_GATE_SEEDS in a process of its
+    own, all side by side (``_ssl_gate_seed``); the gate's conditions on
+    the medians over the seeds."""
+    import statistics
+
     t0 = time.perf_counter()
     scp, closed, open_ = ssl_probe_corpus(folder)
     corpus_s = time.perf_counter() - t0
-    eers, exps, walls, k = {}, {}, {}, []
+    procs = {}
     for seed in SSL_GATE_SEEDS:
-        for tag, epochs in (("init", 0), ("trained", SSL_GATE_EPOCHS)):
-            exp = os.path.join(folder, f"exp_sdpn_{seed}_{tag}")
-            cfg = os.path.join(folder, f"cfg_{seed}_{tag}.yaml")
-            with open(cfg, "w") as f:
-                yaml.safe_dump({"exp_dir": exp, "data": scp,
-                                "epochs": epochs, **SSL_GATE_CONFIG}, f)
-            t0 = time.perf_counter()
-            eer = eers.setdefault(seed, {}).setdefault(tag, {})
-            with contextlib.redirect_stdout(io.StringIO()):
-                k.append(_counted(lambda: train_ssl.main(
-                    ["--config", cfg, "--variant", "sdpn", "--seed",
-                     str(seed)])))
-                for name, (eval_scp, utts) in (("closed", closed),
-                                               ("open", open_)):
-                    emb_dir = os.path.join(exp, f"embs_{name}")
-                    k.append(_counted(lambda: extract_ssl.main(
-                        ["--exp_dir", exp, "--data", eval_scp, "--out_dir",
-                         emb_dir, "--variant", "sdpn"])))
-                    eer[name] = ssl_eer(load_embeddings(emb_dir), utts)
-            walls[f"{seed}_{tag}"] = round(time.perf_counter() - t0, 1)
-            if (seed, tag) != (SSL_GATE_SEEDS[0], "trained"):
-                shutil.rmtree(exp)  # a checkpoint a epoch, ~50 MB each
-            exps[(seed, tag)] = exp
+        procs[seed] = subprocess.Popen(
+            [sys.executable, "-c", _SSL_GATE_RUNNER, ROOT,
+             json.dumps([folder, seed, scp, closed, open_])], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _CHILDREN.append(procs[seed])
+    eers, walls, k = {}, {}, []
+    for seed, proc in procs.items():
+        out, err = proc.communicate(timeout=900)
+        got = re.search(r"\[gate seed\] (\{.*\})", out)
+        if proc.returncode != 0 or got is None:
+            raise AssertionError(f"the gate's seed {seed} failed (rc "
+                                 f"{proc.returncode}):\n{out[-2000:]}\n"
+                                 f"{err[-3000:]}")
+        res = json.loads(got.group(1))
+        eers[seed] = res["eer"]
+        walls.update({f"{seed}_{tag}": w for tag, w in res["walls"].items()})
+        k += [tuple(c) for c in res["launches"]]
+    wall = time.perf_counter() - t0 - corpus_s
     med = {key: statistics.median(f(e) for e in eers.values())
            for key, f in (("init", lambda e: e["init"]["closed"]),
                           ("trained", lambda e: e["trained"]["closed"]),
@@ -3534,8 +3598,10 @@ def _ssl_gate(folder: str) -> dict:
                              f"{SSL_GATE['improvement_min']}, trained <= "
                              f"{SSL_GATE['trained_max']}); launches {k}")
     return {"eer": eers, "median": med,
-            "exp": exps[(SSL_GATE_SEEDS[0], "trained")], "closed": closed,
-            "corpus_s": corpus_s, "train_and_extract_s": walls}
+            "exp": os.path.join(folder,
+                                f"exp_sdpn_{SSL_GATE_SEEDS[0]}_trained"),
+            "closed": closed, "corpus_s": corpus_s,
+            "train_and_extract_s": walls, "seeds_side_by_side_s": wall}
 
 
 def _sequential_embs(sizes, dim=16, seed=0, spread=0.05):
@@ -3706,7 +3772,8 @@ def phase_ssl(work: str, models: str, smi: str) -> dict:
         f"{m['improvement']:.4f} (want init >= {SSL_GATE['init_min']}, "
         f"improvement >= {SSL_GATE['improvement_min']}, trained <= "
         f"{SSL_GATE['trained_max']}); train+extract s "
-        f"{gate['train_and_extract_s']}")
+        f"{gate['train_and_extract_s']}, the seeds side by side in "
+        f"{gate['seeds_side_by_side_s']:.1f} s")
     scoring = _ssl_scoring_and_boundaries(os.path.join(folder, "scoring"),
                                           gate, models)
     log(f"[ssl scoring] infer_sv_ssl printed {scoring['infer_sv_ssl_cosine']}"
@@ -3758,12 +3825,18 @@ VIDEO_TURN_TOL_S = 0.2
 VIDEO_VAD_FILL_S = 0.316
 VIDEO_CPU_THREADS = 6             # the CPU reruns' first audio pass, beside
                                   # the detector trainer's process
+# the runs held byte-equal to a --device cpu rerun (the CUT: the other two
+# have none; the fps 12.5 rerun computes the detector and TalkNet on the
+# CPU, the boxes rerun the energy scorer)
+VIDEO_CPU_RERUNS = ("boxes", "detector_asd_fps12.5")
+VIDEO_CPU_AUDIO_THREADS = 5       # the reruns' audio pass, beside the
+                                  # detector's and the ASD trainer's processes
 FACE_DET_CONFIG = os.path.join("configs", "face_det.yaml")
 # the cut (the config: 40): the gate passed from epoch 4 of 4 on the H100,
 # where the detector still missed one of the video's three faces at
-# VIDEO_FACE_THRESHOLD (recall 0.70); the trainer runs beside the CPU
-# reruns' thread, which takes longer than 8 epochs
-FACE_DET_EPOCHS = 8
+# VIDEO_FACE_THRESHOLD (recall 0.70); the weakest face scored 0.51-0.56 at
+# epoch 5, 0.60-0.65 at 6 and 0.74-0.79 at 8 on the H100
+FACE_DET_EPOCHS = 6
 FACE_DET_GATE_FRAMES = 8          # tests/test_face_detector.py's gate
 FACE_DET_STEP_TOL = 1e-3
 TALKNET_CHECK = (2, 25)           # B, T of the card-vs-CPU check
@@ -3846,6 +3919,7 @@ def _face_det_train_start(folder: str):
          "speaker3d_tpu_torch.cli.train_face_detector"] + argv, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
     return proc, time.perf_counter(), exp
 
 
@@ -4301,27 +4375,37 @@ def phase_video(work: str, models: str, smi: str) -> dict:
     asd_exp = os.path.join(folder, "exp_asd")
     det_flags = ["--face_detector_exp_dir", det_exp, "--face_threshold",
                  str(VIDEO_FACE_THRESHOLD), "--asd_exp_dir", asd_exp]
+    # the last run has no --device cpu rerun (the CUT: its CPU audio
+    # pipeline was 33 s of the reruns' thread, the phase's critical path);
+    # the other three hold the card's RTTM byte-equal to the CPU's
     plans = (("boxes", ["--face_boxes_json", boxes_path], 25.0),
              ("detector_asd", det_flags, 25.0),
              ("detector_asd_fps12.5", det_flags + ["--fps", "12.5"], 12.5),
              ("detector_asd_17.8M", det_flags + ["--model_id", MODEL_17M],
               25.0))
     plans = [(n, e + ["--local_model_dir", models], f) for n, e, f in plans]
+    reruns = [plan for plan in plans if plan[0] in VIDEO_CPU_RERUNS]
     ready, cpu_runs, cpu_audio_s, failed = threading.Event(), {}, {}, []
 
     def cpu_side():
         try:
+            with cpu_threads(VIDEO_CPU_AUDIO_THREADS):
+                cpu_audio_s[MODEL_W24] = _cpu_audio(models, MODEL_W24, wav)
+            ready.wait()
             with cpu_threads(VIDEO_CPU_THREADS):
-                for model_id in (MODEL_W24, MODEL_17M):
-                    cpu_audio_s[model_id] = _cpu_audio(models, model_id, wav)
-                ready.wait()
-                for name, extra, fps in plans:
+                for name, extra, fps in reruns:
                     cpu_runs[name] = _video_run(folder, name, extra, frames,
                                                 fps, wav, turns, boxes, "cpu")
         except BaseException as e:  # noqa: BLE001 - re-raised after the join
             failed.append(e)
 
     started = _face_det_train_start(folder)
+    # the ASD trainer on crops of the rendered frames, in a process of its
+    # own beside the detector's (phase_asd reads it)
+    t0 = time.perf_counter()
+    asd_data = asd_corpus(os.path.join(work, "asd"), frames, turns, wav)
+    asd_data["corpus_s"] = time.perf_counter() - t0
+    asd_started = _asd_train_start(os.path.join(work, "asd"), asd_data)
     memo = _CpuMemo()
     with memo:
         cpu_thread = threading.Thread(target=cpu_side, name=memo.THREAD)
@@ -4373,29 +4457,35 @@ def phase_video(work: str, models: str, smi: str) -> dict:
     if failed:
         raise failed[0]
     log(f"[video cpu] the --device cpu reruns' audio pipelines on "
-        f"{VIDEO_CPU_THREADS} threads: "
+        f"{VIDEO_CPU_AUDIO_THREADS} threads: "
         f"{json.dumps({k.split('/')[-1]: round(v, 1) for k, v in cpu_audio_s.items()})} s")
     runs, rttms = {}, {}
     for name, _, _ in plans:
-        card, cpu = cards[name], cpu_runs[name]
-        box_diff = _max_box_diff(card["boxes"], cpu["boxes"])
+        card, cpu = cards[name], cpu_runs.get(name)
+        box_diff = (_max_box_diff(card["boxes"], cpu["boxes"]) if cpu
+                    else None)
         run = runs[name] = {
             "k1": card["k1"], "k2": card["k2"], "tracks": card["tracks"],
-            "wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
-            "stage_s": card["stage_s"], "cpu_stage_s": cpu["stage_s"],
+            "wall_s": card["wall_s"],
+            "cpu_wall_s": cpu["wall_s"] if cpu else None,
+            "stage_s": card["stage_s"],
+            "cpu_stage_s": cpu["stage_s"] if cpu else None,
             "turns": card["turns"], "rttm_equal_cpu":
-            card["rttm"] == cpu["rttm"], "box_max_diff_px": box_diff,
-            "detection": card["detection"]}
+            card["rttm"] == cpu["rttm"] if cpu else None,
+            "box_max_diff_px": box_diff, "detection": card["detection"]}
+        against = (f"byte-equal to --device cpu: {run['rttm_equal_cpu']}; "
+                   f"boxes vs the CPU's max {box_diff:.3g} px; wall "
+                   f"{card['wall_s']:.2f} s (CPU {cpu['wall_s']:.2f} s)"
+                   if cpu else f"no --device cpu rerun (cut); wall "
+                   f"{card['wall_s']:.2f} s")
         log(f"[video {name}] launches K1 {card['k1']} K2 {card['k2']}; "
             f"{card['tracks']} tracks; faces found {card['detection']}; "
-            f"RTTM {card['turns']}; byte-equal to "
-            f"--device cpu: {run['rttm_equal_cpu']}; boxes vs the CPU's max "
-            f"{box_diff:.3g} px; wall {card['wall_s']:.2f} s (CPU "
-            f"{cpu['wall_s']:.2f} s); stages s "
+            f"RTTM {card['turns']}; {against}; stages s "
             f"{json.dumps({k: round(v, 3) for k, v in card['stage_s'].items()})}")
         ok = (card["turns"]["speakers"] == 3
               and card["turns"]["max_start_dist_s"] <= VIDEO_TURN_TOL_S
-              and run["rttm_equal_cpu"] and box_diff <= 1e-2
+              and (cpu is None or (run["rttm_equal_cpu"]
+                                   and box_diff <= 1e-2))
               and card["k1"] > 0
               and (card["k2"] == 7 * card["k1"] if name.endswith("17.8M")
                    else card["k2"] == 0))
@@ -4422,35 +4512,518 @@ def phase_video(work: str, models: str, smi: str) -> dict:
                       "cpu_audio_s": cpu_audio_s,
                       "cpu_memo": {"computed": memo.misses,
                                    "repeats": memo.hits},
+                      "phase_s": phase_s},
+            "asd_started": asd_started, "asd_data": asd_data}
+
+
+# the ASD trainer (cli/train_asd.py) at its defaults on an AVA-layout corpus
+# cut from the rendered video: each clip one speaker's place box over 1-10 s
+# (25-250 frames), labelled by that speaker's turns, with the
+# conversation's audio
+ASD_CLIPS = {"train": 60, "val": 12}
+ASD_CLIP_FRAMES = (25, 250)
+ASD_SEED = 700
+ASD_EPOCHS = 3                    # the cut (the CLI's default: 25)
+# one step at a real batch on the card against the port's CPU step from
+# the trained state (fp32 on both; tests/test_torch_gpu.py explains the
+# ill-conditioned leaves): the loss, the BatchNorm statistics, the
+# parameters (the held-apart entries aside), the gradients recovered from
+# the first moments (median and worst leaf of their scale), and the
+# held-apart entries' gradients (a bias before a training-mode BatchNorm,
+# the key third of each in_proj_bias: zero but for rounding). The step
+# moves a parameter by up to ~lr; the two devices' updates differ by the
+# gradients' difference through (1 - beta1) in the first moment, so a leaf
+# whose scale is ten steps of lr may differ by ~2.5e-3 of it (4.2e-4 seen
+# on the H100); a wrong update (a sign, a bias correction) moves a
+# parameter by ~lr, 1e-1 of such a leaf
+ASD_STEP_TOL = {"loss_rel": 1e-5, "stats": 1e-4, "param": 1e-2,
+                "grad_median": 1e-3, "grad_worst": 0.25, "held_apart": 1e-6}
+ASD_HELD_APART = "visualConv1D.net.0.bias"
+ASD_TRACE_STEPS = 3               # --profile_dir's window: steps 2-4
+_ASD_EPOCH_LINE = r"^epoch (\d+): loss ([-\d.naninf]+) val mAP ([\d.]+)%"
+# the processes this script starts, stopped at its end whatever happened
+_CHILDREN = []
+
+
+def asd_corpus(folder: str, frames, turns, wav) -> dict:
+    """The seeded AVA-layout corpus: per clip an 11-character video id, the
+    entity's wav (the conversation over the clip), jpg crops of the
+    speaker's place box named by timestamp, and a loader CSV row
+    ``entity \t frames \t fps \t [labels] \t index`` (1 while that speaker
+    talks)."""
+    import cv2
+
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    rng = np.random.default_rng(ASD_SEED)
+    audio_dir = os.path.join(folder, "clips_audios")
+    video_dir = os.path.join(folder, "clips_videos")
+    out, k, positive = {"audio_dir": audio_dir, "video_dir": video_dir}, 0, 0
+    per_frame = int(FS / VIDEO_FPS)
+    for split, n_clips in ASD_CLIPS.items():
+        rows = []
+        for _ in range(n_clips):
+            spk = int(rng.integers(0, len(VIDEO_PLACES)))
+            n = int(rng.integers(ASD_CLIP_FRAMES[0], ASD_CLIP_FRAMES[1] + 1))
+            start = int(rng.integers(0, len(frames) - n + 1))
+            video = f"asd{k:08d}"
+            entity = f"{video}_s{spk}"
+            ent_dir = os.path.join(video_dir, video, entity)
+            os.makedirs(ent_dir)
+            os.makedirs(os.path.join(audio_dir, video))
+            (x, y, bw, bh), _, _ = VIDEO_PLACES[spk]
+            labels = []
+            for i in range(start, start + n):
+                t = i / VIDEO_FPS
+                cv2.imwrite(os.path.join(ent_dir, f"{t:.2f}.jpg"),
+                            frames[i][y:y + bh, x:x + bw])
+                labels.append(int(any(st <= t < ed and s == spk
+                                      for st, ed, s in turns)))
+            write_wav(os.path.join(audio_dir, video, entity + ".wav"),
+                      wav[start * per_frame:(start + n) * per_frame], FS)
+            rows.append(f"{entity}\t{n}\t{VIDEO_FPS:g}\t"
+                        f"[{','.join(map(str, labels))}]\t{k}")
+            positive += sum(labels)
+            k += 1
+        out[split] = os.path.join(folder, f"{split}.csv")
+        with open(out[split], "w") as f:
+            f.write("\n".join(rows) + "\n")
+    out["frames"] = sum(int(r.split("\t")[1]) for split in ASD_CLIPS
+                        for r in open(out[split]).read().split("\n") if r)
+    out["positive_share"] = positive / out["frames"]
+    return out
+
+
+def _asd_argv(data: dict, exp: str) -> list:
+    return ["--train_csv", data["train"], "--val_csv", data["val"],
+            "--audio_dir", data["audio_dir"], "--video_dir",
+            data["video_dir"], "--exp_dir", exp]
+
+
+def _asd_train_start(folder: str, data: dict):
+    """cli.train_asd in a process of its own at its defaults but for the
+    epochs."""
+    exp = os.path.join(folder, "exp_asd")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _TRAIN_RUNNER,
+         "speaker3d_tpu_torch.cli.train_asd"] + _asd_argv(data, exp)
+        + ["--epochs", str(ASD_EPOCHS), "--profile_dir",
+           os.path.join(folder, "trace"), "--profile_steps",
+           str(ASD_TRACE_STEPS)], cwd=ROOT,
+        # one OpenCV thread: the loader's images are 112 x 112
+        env=dict(os.environ, PYTHONPATH=ROOT, OPENCV_FOR_THREADS_NUM="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, time.perf_counter(), exp
+
+
+def _asd_train_finish(started) -> dict:
+    proc, t0, exp = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train_asd failed (rc {proc.returncode}):\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    epochs = re.findall(_ASD_EPOCH_LINE, out, re.M)
+    steps = re.findall(_EPOCH_LINE, out)  # a sample is a frame
+    counts = re.search(r"\[train launches\] (\{.*\})", out)
+    if len(epochs) != ASD_EPOCHS or len(steps) != ASD_EPOCHS or not counts:
+        raise AssertionError(f"train_asd printed no epoch lines:\n"
+                             f"{out[-3000:]}")
+    counts = json.loads(counts.group(1))
+    losses = [float(e[1]) for e in epochs]
+    last = steps[-1]
+    run = {"exp": exp, "epochs": len(epochs),
+           "steps": sum(int(e[1]) for e in steps),
+           "frames": sum(int(e[1]) * int(e[2]) for e in steps),
+           "step_ms_median_last_epoch": float(last[3]),
+           "first_step_ms": float(steps[0][4]),
+           "frames_per_s_last_epoch": float(last[5]),
+           "data_wait_share": (sum(float(e[6]) for e in steps)
+                               / sum(float(e[7]) for e in steps)),
+           "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
+           "k1": counts["k1"], "k2": counts["k2"], "losses": losses,
+           "val_map_percent": [float(e[2]) for e in epochs],
+           "process_wall_s": wall}
+    if counts["k1"] or counts["k2"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_asd: launches {counts}, losses {losses}")
+    run["trace"] = _asd_trace(os.path.join(os.path.dirname(exp), "trace",
+                                           "trace.json"))
+    return run
+
+
+def _asd_trace(path: str) -> dict:
+    """The CLI's torch.profiler trace of ASD_TRACE_STEPS steps: the device's
+    kernel time against the traced window (the busy share), per step, and
+    the three kernels that took the most."""
+    import collections
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] += e["dur"]
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    busy = sum(kernels.values())
+    if not busy:
+        raise AssertionError(f"{path}: no device time in the trace")
+    return {"steps": ASD_TRACE_STEPS, "window_ms": window / 1e3,
+            "kernel_ms": busy / 1e3, "busy_share": busy / window,
+            "top": [(name[:60], round(us / 1e3, 2), round(us / busy, 3))
+                    for name, us in kernels.most_common(3)]}
+
+
+def _asd_real_batch(data: dict) -> tuple:
+    """The loader's batch of the fewest frames among those of two clips or
+    more (the 3-D convolution reads across the clips): (index, batch)."""
+    from speaker3d_tpu_torch.data.dataset_asd import TrainData
+
+    train = TrainData(data["train"], data["audio_dir"], data["video_dir"], 500)
+    sizes = [(len(b) * int(b[-1].split("\t")[1]), i)
+             for i, b in enumerate(train.mini_batch) if len(b) >= 2]
+    index = min(sizes)[1]
+    a, v, y = train[index]
+    return index, {"audio": a.astype(np.float32),
+                   "visual": v.astype(np.float32),
+                   "labels": y.astype(np.int32)}
+
+
+def _asd_step_check(exp: str, data: dict) -> dict:
+    """One step of the trained state on a real batch on the card and on the
+    CPU: ASD_STEP_TOL's quantities."""
+    import torch
+
+    from speaker3d_tpu_torch.models.talknet import TalkNetModel
+    from speaker3d_tpu_torch.train import asd_train
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+
+    tree = Checkpointer(os.path.join(exp, "models")).recover_if_possible()
+    index, batch = _asd_real_batch(data)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = init_adam_train_state(TalkNetModel(), dev)
+        asd_train.load_state_tree(state, tree["asd_state"])
+        mu0 = {k: v.detach().cpu().double() for k, v in state.adam_m.items()}
+        step = asd_train.make_asd_train_step(asd_train.ASDTrainConfig(
+            step_per_epoch=int(tree["asd_state"]["step"]) // ASD_EPOCHS))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()})
+        loss = m["loss"].item()
+        wall = time.perf_counter() - t0
+        b1 = 0.9
+        grads = {k: (v.detach().cpu().double() - b1 * mu0[k]) / (1 - b1)
+                 for k, v in state.adam_m.items()}
+        out[dev] = (loss, m["scores"].cpu().numpy(),
+                    {k: v.detach().cpu().double()
+                     for k, v in state.model.state_dict().items()
+                     if v.is_floating_point()}, grads, wall)
+    (lc, sc, pc, gc, tc), (lh, sh, ph, gh, th) = out["cuda"], out["cpu"]
+
+    def of_scale(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+    def apart(k, t):
+        """(t without its held-apart entries, those entries)."""
+        if k == ASD_HELD_APART:
+            return t[:0], t
+        if k.endswith("in_proj_bias"):
+            d = t.shape[0] // 3
+            return torch.cat([t[:d], t[2 * d:]]), t[d:2 * d]
+        return t, t[:0]
+
+    stats = max(of_scale(pc[k], ph[k]) for k in ph if "running_" in k)
+    params, param_leaf = max(
+        (of_scale(apart(k, pc[k])[0], apart(k, ph[k])[0]), k)
+        for k in ph if "running_" not in k and k != ASD_HELD_APART)
+    ratios = [of_scale(apart(k, gc[k])[0], apart(k, gh[k])[0]) for k in gh
+              if k != ASD_HELD_APART]
+    held = max(float(apart(k, g[k])[1].abs().max()) for g in (gc, gh)
+               for k in g if k == ASD_HELD_APART or k.endswith("in_proj_bias"))
+    res = {"batch_index": index, "batch": list(batch["visual"].shape[:2]),
+           "loss": lh, "loss_rel": abs(lc - lh) / abs(lh),
+           "scores_max_diff": float(np.abs(sc - sh).max()),
+           "stats_worst": stats, "param_worst": params,
+           "param_worst_leaf": param_leaf,
+           "grad_median": float(np.median(ratios)),
+           "grad_worst": float(max(ratios)), "held_apart_max": held,
+           "card_step_s": tc, "cpu_step_s": th}
+    tol = ASD_STEP_TOL
+    if not (res["loss_rel"] <= tol["loss_rel"] and stats <= tol["stats"]
+            and params <= tol["param"]
+            and res["grad_median"] <= tol["grad_median"]
+            and res["grad_worst"] <= tol["grad_worst"]
+            and held <= tol["held_apart"]):
+        raise AssertionError(f"the ASD step card vs CPU: {res}")
+    return res
+
+
+def _asd_test_line(data: dict, exp: str, device: str) -> tuple:
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import train_asd
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_asd.main(_asd_argv(data, exp) + ["--test", "--device", device])
+    return buf.getvalue().strip(), time.perf_counter() - t0
+
+
+def phase_asd(started, data: dict, smi: str) -> dict:
+    """The TalkNet ASD trainer (started in phase_video): its numbers; (a) one
+    step at a real batch on the card against the CPU's; (b) ``--test`` on
+    the card against ``--device cpu``; (c) ``load_talknet_exp`` on the
+    trained experiment; (d) finite losses."""
+    import torch
+
+    from speaker3d_tpu_torch.models.talknet import TalkNetModel, load_talknet_exp
+
+    t_phase = time.perf_counter()
+    run = _asd_train_finish(started)
+    log(f"[asd train] {smi}: cli.train_asd at its defaults (--batch_size 500 "
+        f"frames, lr 1e-4, decay 0.95; TalkNet at its width, 112 x 112 "
+        f"crops) on {ASD_CLIPS['train']} train and {ASD_CLIPS['val']} val "
+        f"clips of {ASD_CLIP_FRAMES[0]}-{ASD_CLIP_FRAMES[1]} frames cut from "
+        f"the video phase's frames ({data['frames']} frames, "
+        f"{data['positive_share']:.1%} talking, written in "
+        f"{data['corpus_s']:.1f} s; CUT: {ASD_EPOCHS} epochs, not 25; beside "
+        f"the video phase): {run['steps']} steps, {run['frames']} frames: "
+        f"step {run['step_ms_median_last_epoch']:.1f} ms (median of the last "
+        f"epoch, CUDA events; the first {run['first_step_ms']:.1f}), "
+        f"{run['frames_per_s_last_epoch']:.1f} frames/s, data wait "
+        f"{run['data_wait_share']:.1%} of the epochs, max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.3f} GiB; launches K1 {run['k1']} "
+        f"K2 {run['k2']}; losses by epoch "
+        f"{[round(x, 4) for x in run['losses']]}, val mAP by epoch "
+        f"{run['val_map_percent']} %; the process {run['process_wall_s']:.1f} s")
+    tr = run["trace"]
+    log(f"[asd trace] torch.profiler over {tr['steps']} steps (the CLI's "
+        f"--profile_dir): {tr['kernel_ms']:.1f} ms of kernels in a "
+        f"{tr['window_ms']:.1f} ms window, the device busy "
+        f"{tr['busy_share']:.1%}; most time (name, ms, share): {tr['top']}")
+    step = _asd_step_check(run["exp"], data)
+    log(f"[asd train step] a real batch (index {step['batch_index']}, B, T = "
+        f"{step['batch']}): the card vs the port's CPU step from the trained "
+        f"state: loss {step['loss']:.5f} rel {step['loss_rel']:.3g}, scores "
+        f"{step['scores_max_diff']:.3g}, BatchNorm statistics "
+        f"{step['stats_worst']:.3g} of scale, worst parameter "
+        f"{step['param_worst']:.3g} of its scale "
+        f"({step['param_worst_leaf']}), gradients median "
+        f"{step['grad_median']:.3g} / worst {step['grad_worst']:.3g} of "
+        f"scale, held-apart entries' gradients <= "
+        f"{step['held_apart_max']:.3g} (tolerances {ASD_STEP_TOL}); card "
+        f"{step['card_step_s']:.2f} s, CPU {step['cpu_step_s']:.2f} s")
+    card_line, card_s = _asd_test_line(data, run["exp"], "cuda")
+    cpu_line, cpu_s = _asd_test_line(data, run["exp"], "cpu")
+    if not (card_line == cpu_line and card_line.startswith("mAP: ")):
+        raise AssertionError(f"--test on the card {card_line!r} against "
+                             f"--device cpu {cpu_line!r}")
+    model = load_talknet_exp(run["exp"])
+    if not (isinstance(model, TalkNetModel) and all(
+            torch.isfinite(t).all() for t in model.state_dict().values()
+            if t.is_floating_point())):
+        raise AssertionError("load_talknet_exp on the trained experiment")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[asd test] --test on the card: {card_line!r} ({card_s:.1f} s), "
+        f"--device cpu the same ({cpu_s:.1f} s); load_talknet_exp read the "
+        f"experiment; the phase's own part took {phase_s:.1f} s")
+    return {"k1": run["k1"], "k2": run["k2"],
+            "stats": {"train": {k: v for k, v in run.items() if k != "exp"},
+                      "train_step": step, "test_line": card_line,
+                      "corpus": {k: data[k] for k in ("frames",
+                                                      "positive_share",
+                                                      "corpus_s")},
                       "phase_s": phase_s}}
+
+
+DRIVER_SECONDS = (120.0, 30.0, 45.0)  # the conversation and two shorter ones
+DRIVER_TIMED = ("processing_time_sec", "rtf")
+
+
+def _driver_summary(out_dir: str, wavs) -> bytes:
+    """run_diarization_on_dir's summary (--per_sentence_reindex) of the
+    JSONs in ``out_dir``, as the driver writes it."""
+    summary = {}
+    for wav in wavs:
+        base = os.path.splitext(os.path.basename(wav))[0]
+        with open(os.path.join(out_dir, f"{base}.json")) as f:
+            segs = json.load(f)
+        spks = sorted({v["speaker"] for v in segs.values()})
+        remap = {s: i for i, s in enumerate(spks)}
+        summary[base] = {"num_speakers": len(spks), "segments": [
+            {"start": v["start"], "stop": v["stop"],
+             "speaker": remap[v["speaker"]]} for v in segs.values()]}
+    return json.dumps(summary, indent=2).encode()
+
+
+def _driver_outputs(out_dir: str, wavs) -> dict:
+    """Per file: the JSON, .vad_info.json and .pairs.json bytes, and the
+    .meta.json without its measured times."""
+    out = {}
+    for wav in wavs:
+        base = os.path.join(out_dir, os.path.splitext(
+            os.path.basename(wav))[0])
+        for ext in (".json", ".vad_info.json", ".pairs.json"):
+            with open(base + ext, "rb") as f:
+                out[base[len(out_dir):] + ext] = f.read()
+        with open(base + ".meta.json") as f:
+            meta = json.load(f)
+        out[base[len(out_dir):] + ".meta.json"] = {
+            k: v for k, v in meta.items() if k not in DRIVER_TIMED}
+    return out
+
+
+def phase_drivers(work: str, models: str, smi: str) -> dict:
+    """The three batch drivers on the card with the 17.8M model over a
+    directory of three ``*_speech_estimate.wav`` conversations, each
+    against the diarization CLI's own run over the same files."""
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import (
+        infer_diarization, run_diarization_on_dir, run_diarization_simple,
+        run_diarization_speech_estimate)
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    folder = os.path.join(work, "drivers")
+    src = os.path.join(folder, "estimates")
+    os.makedirs(src)
+    wavs = []
+    for seed, seconds in enumerate(DRIVER_SECONDS):
+        wavs.append(os.path.join(src, f"conv{seed}_speech_estimate.wav"))
+        write_wav(wavs[-1], synth_conversation(seconds, seed=seed), FS)
+    model = ["--model_id", MODEL_17M, "--local_model_dir", models]
+    ref = os.path.join(folder, "cli")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer_diarization.main(["--wav"] + wavs + [
+            "--out_dir", ref, "--out_type", "json", "--sidecar"] + model)
+    cli_s = time.perf_counter() - t0
+    want = _driver_outputs(ref, wavs)
+    want_summary = _driver_summary(ref, wavs)
+    # speech_estimate takes no --local_model_dir (parse_args): it runs
+    # where ./pretrained is the models folder, the CLI's default
+    os.symlink(models, os.path.join(folder, "pretrained"))
+    summary_path = os.path.join(folder, "summary.json")
+    runs = {
+        "simple": (run_diarization_simple.main, [
+            "--src_dir", src, "--out_dir", os.path.join(folder, "simple")]
+            + model, os.path.join(folder, "simple")),
+        "on_dir": (run_diarization_on_dir.main, [
+            "--src_dir", src, "--out_dir", os.path.join(folder, "on_dir"),
+            "--summary_out", summary_path, "--per_sentence_reindex"] + model,
+            os.path.join(folder, "on_dir")),
+        "speech_estimate": (run_diarization_speech_estimate.main, [
+            "--src_dir", src, "--model_id", MODEL_17M],
+            src + "_3dspeaker_diarization")}
+    res, k1_all, k2_all = {}, 0, 0
+    cwd = os.getcwd()
+    for name, (main, argv, out_dir) in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(folder)
+            with contextlib.redirect_stdout(buf):
+                rc, k1, k2 = _counted_result(lambda: main(argv))
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        got = _driver_outputs(out_dir, wavs)
+        diff = sorted(k for k in want if got.get(k) != want[k])
+        res[name] = {"rc": rc, "k1": k1, "k2": k2, "wall_s": wall,
+                     "files_equal_cli": not diff}
+        if name == "on_dir":
+            with open(summary_path, "rb") as f:
+                res[name]["summary_equal"] = f.read() == want_summary
+        log(f"[drivers {name}] rc {rc}; launches K1 {k1} K2 {k2}; JSON, "
+            f".vad_info.json, .pairs.json and .meta.json (but for its times) "
+            f"of {len(wavs)} files equal to the CLI's run: {not diff}"
+            + (f"; summary bytes equal: {res[name]['summary_equal']}"
+               if name == "on_dir" else "") + f"; wall {wall:.2f} s")
+        if (rc not in (None, 0) or diff or k1 == 0 or k2 != 7 * k1
+                or not res[name].get("summary_equal", True)):
+            raise AssertionError(f"driver {name}: {res[name]}; differing "
+                                 f"{diff}; stdout {buf.getvalue()[-2000:]}")
+        k1_all, k2_all = k1_all + k1, k2_all + k2
+    with open(os.path.join(ref, "conv0_speech_estimate.json")) as f:
+        speakers = len({v["speaker"] for v in json.load(f).values()})
+    log(f"[drivers] {smi}: three drivers over {len(wavs)} conversations "
+        f"({'/'.join(f'{s:g}' for s in DRIVER_SECONDS)} s) with the 17.8M "
+        f"model; the first has {speakers} speakers; the CLI's own run "
+        f"{cli_s:.2f} s")
+    res["cli_wall_s"] = cli_s
+    return {"k1": k1_all, "k2": k2_all, "stats": res}
+
+
+def _reap_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def main() -> int:
     t_script = time.perf_counter()
     sys.path.insert(0, ROOT)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t0, 1)
+            log(f"[phase] {name} {phase_s[name]:.1f} s")
+
     device = phase_device()
-    phase_build()
+    try:
+        return _main(device, timed, phase_s, t_script)
+    finally:
+        _reap_children()
+
+
+def _main(device, timed, phase_s, t_script) -> int:
+    timed("build", phase_build)
     with tempfile.TemporaryDirectory(prefix="s3d_chip_smoke_") as work:
-        pipe = phase_pipeline(work)
-        sv = phase_sv(work, pipe["models"], device["smi"])
-        backbones = phase_backbones(work, pipe["models"], sv)
-        server = phase_server(work, pipe["models"], device["smi"])
-        diar_cluster = phase_diar_cluster(work, pipe["models"], device["smi"])
-        analysis = phase_analysis(work, pipe["models"], sv)
-        train = phase_train(work, sv, device["smi"])
-        train16 = phase_train_bf16(train["corpus"], device["smi"])
-        dnn = phase_dnn_front(work, pipe["models"], device["smi"])
-        asr = phase_asr(work, pipe["models"], train, train16, device["smi"])
-        ssl = phase_ssl(work, pipe["models"], device["smi"])
-        video = phase_video(work, pipe["models"], device["smi"])
+        pipe = timed("pipeline", phase_pipeline, work)
+        models, smi = pipe["models"], device["smi"]
+        sv = timed("sv", phase_sv, work, models, smi)
+        backbones = timed("backbones", phase_backbones, work, models, sv)
+        server = timed("server", phase_server, work, models, smi)
+        diar_cluster = timed("diar_cluster", phase_diar_cluster, work, models,
+                             smi)
+        analysis = timed("analysis", phase_analysis, work, models, sv)
+        train = timed("train", phase_train, work, sv, smi)
+        train16 = timed("train_bf16", phase_train_bf16, train["corpus"], smi)
+        dnn = timed("dnn_front", phase_dnn_front, work, models, smi)
+        asr = timed("asr", phase_asr, work, models, train, train16, smi)
+        ssl = timed("ssl", phase_ssl, work, models, smi)
+        video = timed("video", phase_video, work, models, smi)
+        asd = timed("asd", phase_asd, video.pop("asd_started"),
+                    video.pop("asd_data"), smi)
+        drivers = timed("drivers", phase_drivers, work, models, smi)
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
-    k1 = phase_k1(lengths, pipe["main_len"], train["stats"]["batch"],
-                  dnn["k1_shapes"] + asr["k1_shapes"])
+    k1 = timed("k1", phase_k1, lengths, pipe["main_len"],
+               train["stats"]["batch"], dnn["k1_shapes"] + asr["k1_shapes"])
     dnn_front_k1_share(k1, dnn)
-    k2 = phase_k2(lengths, pipe["main_len"], asr["predict_lengths"])
-    k3 = phase_k3()
-    phase_nnchain()
-    cluster = phase_cluster(device["smi"])
+    k2 = timed("k2", phase_k2, lengths, pipe["main_len"],
+               asr["predict_lengths"])
+    k3 = timed("k3", phase_k3)
+    timed("nnchain", phase_nnchain)
+    cluster = timed("cluster", phase_cluster, device["smi"])
 
     for k, key in ((k1, "k1"), (k2, "k2")):
         k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key],
@@ -4470,7 +5043,9 @@ def main() -> int:
                                  "predict_label": asr[f"predict_{key}"],
                                  "ssl": ssl[key],
                                  "boundaries": ssl[f"boundaries_{key}"],
-                                 "video": video[key]}
+                                 "video": video[key],
+                                 "asd_train": asd[key],
+                                 "drivers": drivers[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
@@ -4485,7 +5060,8 @@ def main() -> int:
                     "dnn_front": {k: v for k, v in dnn.items()
                                   if k not in ("k1", "k2", "train_k1")},
                     "asr": asr["stats"], "ssl": ssl["stats"],
-                    "video": video["stats"],
+                    "video": video["stats"], "asd": asd["stats"],
+                    "drivers": drivers["stats"], "phase_s": phase_s,
                     "script_s": time.perf_counter() - t_script}))
     log(f"[script] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3]}))

@@ -106,7 +106,8 @@ def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     trunc_std = 0.87962566103423978
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                                   nn.Conv3d)):
                 w = module.weight
                 fan_in = w[0].numel()
                 std = math.sqrt(1.0 / fan_in) / trunc_std

@@ -23,7 +23,8 @@ of it but the loss.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import (Callable, Dict, NamedTuple, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -70,44 +71,57 @@ def init_adam_train_state(model: torch.nn.Module,
                           {n: torch.zeros_like(p) for n, p in zeros.items()})
 
 
-def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
-                         feature_fn: Optional[Callable] = None,
-                         input_key: Optional[str] = None) -> Callable:
-    """``step(state, batch) -> {'loss'[, 'acc'], 'lr'}``: one Adam step on
-    ``state`` in place. ``loss_fn(logits, batch) -> (loss, acc or None)``
+def make_adam_train_step(loss_fn: Callable, cfg, feature_fn:
+                         Optional[Callable] = None,
+                         input_key: Union[str, Sequence[str], None] = None,
+                         lr_fn: Optional[Callable] = None,
+                         aux_key: str = "acc") -> Callable:
+    """``step(state, batch) -> {'loss'[, aux_key], 'lr'}``: one Adam step on
+    ``state`` in place. ``loss_fn(outputs, batch) -> (loss, aux or None)``
     reads its targets from the batch (``labels``, and for CTC
-    ``label_lens``).
+    ``label_lens``); ``aux`` (the frame accuracy, TalkNet's scores) is
+    returned under ``aux_key``.
 
     ``batch``: ``{'wavs': [B, L] float32, 'labels', ...}`` on the state's
     device when ``feature_fn`` is given, else ``{'feats': [B, T, F],
     'labels', ...}``; ``input_key`` names another model input (the face
-    detector's ``frames``). ``loss`` and ``acc`` are 0-d tensors on the
-    device (no host sync), ``lr`` a 0-d float32 CPU tensor."""
+    detector's ``frames``), or a tuple of inputs (TalkNet's ``audio``,
+    ``visual``). ``cfg``: ``beta1``, ``beta2``, ``eps``, and
+    ``weight_decay`` (none added when it is 0 or absent); the lr is
+    ``lr_fn(step)``, by default ``cfg``'s ``warmup_cosine_lr``. ``loss`` and
+    ``aux`` are tensors on the device (no host sync), ``lr`` a 0-d float32
+    CPU tensor."""
     batch_key = input_key or ("wavs" if feature_fn is not None else "feats")
-    b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+    keys = (batch_key,) if isinstance(batch_key, str) else tuple(batch_key)
+    b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
+    wd = getattr(cfg, "weight_decay", 0.0)
+    if lr_fn is None:
+        def lr_fn(step):
+            return warmup_cosine_lr(
+                step, min_lr=cfg.min_lr, max_lr=cfg.max_lr,
+                warmup_epoch=cfg.warmup_epoch, fix_epoch=cfg.fix_epoch,
+                step_per_epoch=cfg.step_per_epoch)
 
     def step(state: AdamTrainState, batch) -> Dict[str, torch.Tensor]:
-        lr = warmup_cosine_lr(
-            state.step, min_lr=cfg.min_lr, max_lr=cfg.max_lr,
-            warmup_epoch=cfg.warmup_epoch, fix_epoch=cfg.fix_epoch,
-            step_per_epoch=cfg.step_per_epoch)
+        lr = lr_fn(state.step)
         # the bias corrections of step t, in float32 as the JAX step's
         t = np.float32(state.step + 1)
         bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
         with matmul_precision("float32"):
-            x = batch[batch_key]
+            xs = [batch[k] for k in keys]
             if feature_fn is not None:
-                x = feature_fn(x)
+                xs = [feature_fn(x) for x in xs]
             state.model.train()
             names, params = zip(*state.model.named_parameters())
-            loss, acc = loss_fn(state.model(x), batch)
+            loss, aux = loss_fn(state.model(*xs), batch)
             params = list(params)
             grads = list(torch.autograd.grad(loss, params))
             with torch.no_grad():
                 m = [state.adam_m[n] for n in names]
                 v = [state.adam_v[n] for n in names]
-                g = torch._foreach_add(grads, params, alpha=wd)
+                g = (torch._foreach_add(grads, params, alpha=wd) if wd
+                     else grads)
                 torch._foreach_mul_(m, b1)
                 torch._foreach_add_(m, g, alpha=1 - b1)
                 torch._foreach_mul_(v, b2)
@@ -120,8 +134,8 @@ def make_adam_train_step(loss_fn: Callable, cfg: VadTrainConfig,
                 torch._foreach_add_(params, upd, alpha=-float(lr))
         state.step += 1
         metrics = {"loss": loss.detach(), "lr": lr}
-        if acc is not None:
-            metrics["acc"] = acc
+        if aux is not None:
+            metrics[aux_key] = aux
         return metrics
 
     return step
@@ -146,38 +160,44 @@ def make_vad_train_step(cfg: VadTrainConfig,
     return make_adam_train_step(vad_loss, cfg, feature_fn)
 
 
-def state_tree(state: AdamTrainState) -> Dict:
+def state_tree(state: AdamTrainState,
+               moments: Sequence[str] = ("adam_m", "adam_v")) -> Dict:
     """The JAX trainer's checkpoint tree of ``state`` (numpy arrays): the
     Flax ``params``, the ``batch_stats`` of a model with BatchNorms (the
-    face detector), ``adam_m``, ``adam_v``, ``step``; a model's
-    ``flax_joined_names`` are its dotted Flax names
+    face detector, TalkNet), the two moments under the names ``moments``
+    (the JAX ASD trainer's are ``mu``, ``nu``), ``step``; a model's
+    ``flax_joined_names`` are its dotted Flax names and its
+    ``flax_raw_names`` its leaves in torch layout
     (``compat/flax_convert.py``)."""
     joined = getattr(state.model, "flax_joined_names", ())
+    raw = getattr(state.model, "flax_raw_names", ())
 
     def tree(sd):
-        return flax_from_state_dict(sd, joined)["params"]
+        return flax_from_state_dict(sd, joined, raw=raw)["params"]
 
-    model = flax_from_state_dict(state.model.state_dict(), joined)
+    model = flax_from_state_dict(state.model.state_dict(), joined, raw=raw)
     out = {"params": model["params"]}
     if model.get("batch_stats"):
         out["batch_stats"] = model["batch_stats"]
-    return {**out, "adam_m": tree(state.adam_m), "adam_v": tree(state.adam_v),
+    return {**out, moments[0]: tree(state.adam_m),
+            moments[1]: tree(state.adam_v),
             "step": np.asarray(state.step, np.int32)}
 
 
-def load_state_tree(state: AdamTrainState, tree: Dict) -> None:
-    """Load a checkpoint tree of either package's trainer into ``state``."""
+def load_state_tree(state: AdamTrainState, tree: Dict,
+                    moments: Sequence[str] = ("adam_m", "adam_v")) -> None:
+    """Load a checkpoint tree of either package's trainer into ``state``
+    (the moments under the names ``moments``)."""
     like = state.model.state_dict()
     state.model.load_state_dict(
         state_dict_from_flax({"params": tree["params"],
                               "batch_stats": tree.get("batch_stats", {})},
                              like=like), strict=True)
     with torch.no_grad():
-        for key, moments in (("adam_m", state.adam_m),
-                             ("adam_v", state.adam_v)):
+        for key, bufs in zip(moments, (state.adam_m, state.adam_v)):
             sd = state_dict_from_flax({"params": tree[key]}, like=like)
-            if sorted(sd) != sorted(moments):
+            if sorted(sd) != sorted(bufs):
                 raise KeyError(f"{key} does not match the model's parameters")
-            for name, buf in moments.items():
+            for name, buf in bufs.items():
                 buf.copy_(sd[name])
     state.step = int(np.asarray(tree["step"]))

@@ -1015,3 +1015,127 @@ def test_talknet_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(
         make_talknet_asd_scorer(sd, device=cuda)(a, f),
         make_talknet_asd_scorer(sd, device="cpu")(a, f), rtol=0, atol=1e-5)
+
+
+# the entries whose gradient is zero but for rounding (a bias before a
+# training-mode BatchNorm; the key third of each attention's in_proj_bias)
+ASD_HELD_APART = "visualConv1D.net.0.bias"
+
+
+def asd_step_comparison(cpu_sd, cpu_m, card_sd, card_m):
+    """The card's TalkNet step against the CPU's: the BatchNorm statistics'
+    worst leaf of its scale, and the first moments' (the gradients') median
+    and worst leaf of their scale and the held-apart entries' largest first
+    moment, on both sides."""
+    stats = [np.abs(card_sd[k] - v).max() / max(np.abs(v).max(), 1e-12)
+             for k, v in cpu_sd.items() if "running_" in k]
+    ratios, held = [], 0.0
+    for k, v in cpu_m.items():
+        g = card_m[k]
+        if k == ASD_HELD_APART:
+            held = max(held, np.abs(v).max(), np.abs(g).max())
+            continue
+        if k.endswith("in_proj_bias"):
+            d = v.shape[0] // 3
+            held = max(held, np.abs(v[d:2 * d]).max(),
+                       np.abs(g[d:2 * d]).max())
+            v, g = np.r_[v[:d], v[2 * d:]], np.r_[g[:d], g[2 * d:]]
+        ratios.append(np.abs(g - v).max() / max(np.abs(v).max(), 1e-12))
+    return {"stats_worst": float(max(stats)),
+            "grad_median": float(np.median(ratios)),
+            "grad_worst": float(max(ratios)), "held_apart_max": float(held)}
+
+
+def test_asd_train_step_on_the_card_matches_the_cpu(cuda):
+    """One TalkNet step (cli/train_asd.py's) at B = 2, T = 25 from the same
+    seeded init and batch: the loss, the BatchNorm statistics and the first
+    moments. The random TalkNet's fp32 gradients are ill-conditioned leaf
+    by leaf (tests/test_torch_asd_train.py): the port's own fp32 CPU step
+    lies a median 4e-5 and at worst 6e-2 of a leaf's scale from its
+    float64 step; the held-apart entries' moments are ~1e-10."""
+    import copy
+
+    from speaker3d_tpu_torch.train import asd_train
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+
+    rng = np.random.default_rng(25)
+    batch = {"audio": rng.standard_normal((2, 100, 13)).astype(np.float32),
+             "visual": (rng.random((2, 25, 112, 112)) * 255).astype(
+                 np.float32),
+             "labels": rng.integers(0, 2, (2, 25)).astype(np.int32)}
+    model = asd_train.init_talknet(3)
+    out = {}
+    for device in ("cpu", cuda):
+        state = init_adam_train_state(copy.deepcopy(model), device)
+        step = asd_train.make_asd_train_step(
+            asd_train.ASDTrainConfig(step_per_epoch=4))
+        m = step(state, {k: torch.from_numpy(v).to(device)
+                         for k, v in batch.items()})
+        out[str(device)] = (
+            m["loss"].item(), m["scores"].cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
+            {k: v.cpu().numpy() for k, v in state.adam_m.items()})
+    (lc, sc, cpu_sd, cpu_m), (lg, sg, card_sd, card_m) = (out["cpu"],
+                                                          out["cuda"])
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-5)
+    cmp = asd_step_comparison(cpu_sd, cpu_m, card_sd, card_m)
+    assert cmp["stats_worst"] <= 1e-4, cmp
+    assert cmp["grad_median"] <= 1e-3 and cmp["grad_worst"] <= 0.25, cmp
+    assert cmp["held_apart_max"] <= 1e-6, cmp
+
+
+def test_diarization_driver_on_the_card_matches_the_cli(cuda, tmp_path,
+                                                        capsys):
+    """run_diarization_on_dir on the card over two seeded wavs with an
+    experiment of the 17.8M ERes2NetV2's layout: the same JSON and
+    .vad_info.json bytes as the diarization CLI's own run on the card, K1
+    and K2 (7 x K1) launched; the summary of every file."""
+    import json
+    import os
+
+    import yaml
+
+    from speaker3d_tpu_torch.cli import infer_diarization, run_diarization_on_dir
+    from speaker3d_tpu_torch.train import sv_train
+    from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    exp = tmp_path / "exp"
+    os.makedirs(exp)
+    model = _randomize(ERes2NetV2(**TRAIN_ARGS), 4)
+    cfg = sv_train.SVTrainConfig(num_classes=4, embedding_size=192)
+    state = sv_train.init_sv_train_state(model, cfg, seed=4, device="cpu")
+    Checkpointer(str(exp / "models")).save_checkpoint(
+        1, {"train_state": sv_train.state_tree(state)})
+    with open(exp / "config.yaml", "w") as f:
+        yaml.safe_dump({"model": {
+            "obj": "speaker3d_tpu.models.eres2netv2.ERes2NetV2",
+            "args": TRAIN_ARGS}}, f)
+    src = tmp_path / "src"
+    os.makedirs(src)
+    rng = np.random.default_rng(6)
+    for i in range(2):
+        t = np.arange(int(rng.uniform(6.0, 12.0) * 16000)) / 16000
+        write_wav(str(src / f"c{i}_speech_estimate.wav"),
+                  0.3 * np.sin(2 * np.pi * (150 + 200 * (t > t[-1] / 2)) * t)
+                  * (np.sin(2 * np.pi * 0.5 * t) > -0.3), 16000)
+    wavs = sorted(str(p) for p in src.iterdir())
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    assert run_diarization_on_dir.main(
+        ["--src_dir", str(src), "--out_dir", str(tmp_path / "drv"),
+         "--summary_out", str(tmp_path / "summary.json"), "--exp_dir",
+         str(exp), "--device", "cuda"]) == 0
+    torch.cuda.synchronize()
+    k1, k2 = fk.fbank_features.launches - k1, rk.res2_block.launches - k2
+    assert k1 > 0 and k2 == 7 * k1
+    infer_diarization.main(["--wav"] + wavs + [
+        "--out_dir", str(tmp_path / "cli"), "--out_type", "json",
+        "--sidecar", "--exp_dir", str(exp), "--device", "cuda"])
+    for w in wavs:
+        base = os.path.splitext(os.path.basename(w))[0]
+        for ext in (".json", ".vad_info.json"):
+            assert ((tmp_path / "drv" / (base + ext)).read_bytes()
+                    == (tmp_path / "cli" / (base + ext)).read_bytes())
+    summary = json.loads((tmp_path / "summary.json").read_text())
+    assert sorted(summary) == ["c0_speech_estimate", "c1_speech_estimate"]

@@ -9,8 +9,9 @@
 - Every module also imports with ``cv2`` blocked, and ``cv2`` is imported
   only inside the functions that read video frames, images or ONNX models
   (the video CLI's ``read_frames`` and two ONNX builders, the face
-  detector trainer's JSONL batches, and one function of
-  ``chip_smoke.py``).
+  detector trainer's JSONL batches, the ASD loader's ``load_visual``, and
+  two functions of ``chip_smoke.py``: the MJPG video and the ASD corpus's
+  jpg crops).
 - The entry points raise without a CUDA device unless the caller passes
   ``device="cpu"``: nothing falls back to the CPU on its own.
 """
@@ -37,7 +38,9 @@ CV2_FUNCTIONS = {
     ("speaker3d_tpu_torch/cli/infer_diarization_video.py",
      "build_face_embedder"),
     ("speaker3d_tpu_torch/cli/train_face_detector.py", "make_batch"),
+    ("speaker3d_tpu_torch/data/dataset_asd.py", "load_visual"),
     ("chip_smoke.py", "_video_cv2"),
+    ("chip_smoke.py", "asd_corpus"),
 }
 
 
@@ -80,7 +83,10 @@ def test_package_has_the_slice_modules():
                  "cli.train_ssl", "cli.extract_ssl", "cli.infer_sv_ssl",
                  "ops.mfcc", "diar.video", "data.synthetic_faces",
                  "models.face_detector", "models.talknet",
-                 "cli.train_face_detector", "cli.infer_diarization_video"):
+                 "cli.train_face_detector", "cli.infer_diarization_video",
+                 "data.dataset_asd", "train.asd_train", "cli.train_asd",
+                 "cli.run_diarization_simple", "cli.run_diarization_on_dir",
+                 "cli.run_diarization_speech_estimate"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -232,6 +238,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
     assert check_single_speaker.get_args(["--wav", "a.wav"]).device == "cuda"
+    from speaker3d_tpu_torch.cli import (
+        run_diarization_on_dir, run_diarization_simple,
+        run_diarization_speech_estimate, train_asd)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_asd.main(["--train_csv", "t", "--val_csv", "v", "--audio_dir",
+                        "a", "--video_dir", "v", "--exp_dir",
+                        str(tmp_path / "asd")])
+    assert train_asd.get_args(["--train_csv", "t", "--val_csv", "v",
+                               "--audio_dir", "a", "--video_dir", "v",
+                               "--exp_dir", "e"]).device == "cuda"
+    (tmp_path / "x_speech_estimate.wav").write_bytes(b"")
+    for driver, argv in ((run_diarization_simple, ["--out_dir",
+                                                   str(tmp_path / "o")]),
+                         (run_diarization_on_dir, []),
+                         (run_diarization_speech_estimate, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            driver.main(["--src_dir", str(tmp_path)] + argv)
     assert infer_diarization.get_args(
         ["--wav", "a.wav", "--out_dir", "o"]).device == "cuda"
     # asked for explicitly, the CPU works
