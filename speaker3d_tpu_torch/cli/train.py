@@ -136,21 +136,18 @@ def build_model(config, seed: int) -> torch.nn.Module:
         return model_cls(**config["model"].get("args", {}))
 
 
-def main(argv=None):
-    args, overrides = get_args(argv)
-    device = resolve_device(args.device)
-    set_seed(args.seed)
-    config = build_config(args.config, overrides, copy_to_exp_dir=True)
-    exp_dir = config["exp_dir"]
-    os.makedirs(exp_dir, exist_ok=True)
-
+def build_loader(config, seed: int, *, speed_pertub: bool = True,
+                 wire: str = "int16") -> tuple:
+    """(dataset, loader, label encoder) of the config's ``data`` CSV.
+    ``speed_pertub`` and ``wire`` are the defaults of the config keys
+    ``speed_pertub`` and ``wire_dtype`` ('int16' or 'float32')."""
     # every random draw of the data pipeline (speeds, crops, augmentation)
     # comes from this generator, seeded as the JAX CLI seeds the global one
-    data_rng = random.Random(args.seed)
+    data_rng = random.Random(seed)
     wav_reader = WavReader(
         sample_rate=config.get("sample_rate", 16000),
         duration=config.get("wav_len", 3.0),
-        speed_pertub=config.get("speed_pertub", True), rng=data_rng)
+        speed_pertub=config.get("speed_pertub", speed_pertub), rng=data_rng)
     label_encoder = SpkLabelEncoder(config["data"])
     aug = SpkVeriAug(
         aug_prob=config.get("aug_prob", 0.0),
@@ -158,20 +155,24 @@ def main(argv=None):
         rng=data_rng) if config.get("aug_prob", 0.0) > 0 else None
     dataset = WavSVDataset(config["data"], wav_reader, label_encoder, aug)
 
-    wire = config.get("wire_dtype", "int16")
+    wire = config.get("wire_dtype", wire)
     if wire not in ("float32", "int16"):
         raise ValueError(
             f"config key 'wire_dtype' must be 'float32' or 'int16', "
             f"got {wire!r}")
     loader = BatchLoader(
         dataset, batch_size=config.get("batch_size", 128),
-        num_workers=config.get("num_workers", 8), seed=args.seed,
+        num_workers=config.get("num_workers", 8), seed=seed,
         wire_dtype=None if wire == "float32" else wire)
-    step_per_epoch = len(loader)
+    return dataset, loader, label_encoder
 
-    model = build_model(config, args.seed)
-    cfg = SVTrainConfig(
-        num_classes=dataset.num_classes,
+
+def sv_train_config(config, num_classes: int,
+                    step_per_epoch: int) -> SVTrainConfig:
+    """The train step's settings from the config, as the JAX CLIs read
+    them."""
+    return SVTrainConfig(
+        num_classes=num_classes,
         embedding_size=config.get("embedding_size", 192),
         momentum=config.get("momentum", 0.9),
         nesterov=config.get("nesterov", True),
@@ -189,6 +190,18 @@ def main(argv=None):
         remat=config.get("remat", False),
         compute_dtype=config.get("compute_dtype", "float32"),
     )
+
+
+def main(argv=None):
+    args, overrides = get_args(argv)
+    device = resolve_device(args.device)
+    set_seed(args.seed)
+    config = build_config(args.config, overrides, copy_to_exp_dir=True)
+    os.makedirs(config["exp_dir"], exist_ok=True)
+    dataset, loader, label_encoder = build_loader(config, args.seed)
+
+    model = build_model(config, args.seed)
+    cfg = sv_train_config(config, dataset.num_classes, len(loader))
     fbank = KaldiFbank(FbankConfig(
         sample_rate=config.get("sample_rate", 16000),
         num_mel_bins=config.get("n_mels", 80)), mean_norm=True, device=device)
@@ -196,7 +209,19 @@ def main(argv=None):
         model, cfg, feature_fn=fbank,
         model_parallel=config.get("model_parallel", 1))
     state = init_sv_train_state(model, cfg, seed=args.seed, device=device)
+    fit(args, config, device, state, train_step, loader, label_encoder)
 
+
+def fit(args, config, device: torch.device, state, train_step, loader,
+        label_encoder, *, tree_fn=state_tree, warm_start: bool = True,
+        log_margin: bool = True) -> None:
+    """The epochs of an SV trainer CLI: recover from the experiment's latest
+    checkpoint (either trainer's layout), or with ``warm_start`` from
+    ``init_exp_dir``; per epoch the train loop, one ``train_epoch.log``
+    line, the ``epoch N: ...`` summary and one checkpoint of
+    ``tree_fn(state)``; a preemption checkpoint on SIGTERM."""
+    exp_dir = config["exp_dir"]
+    step_per_epoch = len(loader)
     epoch_counter = EpochCounter(config.get("num_epoch", 70))
     checkpointer = Checkpointer(os.path.join(exp_dir, "models"),
                                 recoverables={"epoch_counter": epoch_counter})
@@ -204,7 +229,7 @@ def main(argv=None):
     if recovered is not None and "train_state" in recovered:
         load_state_tree(state, recovered["train_state"])
         print(f"recovered from epoch {recovered['__meta__']['epoch']}")
-    elif config.get("init_exp_dir"):
+    elif warm_start and config.get("init_exp_dir"):
         # warm start for a large-margin finetune: the weights of another
         # experiment (either trainer's), optimizer and step reset
         src = Checkpointer(os.path.join(config["init_exp_dir"], "models")
@@ -246,13 +271,14 @@ def main(argv=None):
                 print(f"epoch {epoch} step {i+1}/{step_per_epoch} "
                       f"loss {float(losses[-1]):.4f} "
                       f"acc {float(accs[-1]):.3f} "
-                      f"lr {float(metrics['lr']):.5f} "
-                      f"margin {float(metrics['margin']):.3f}", flush=True)
+                      f"lr {float(metrics['lr']):.5f}"
+                      + (f" margin {float(metrics['margin']):.3f}"
+                         if log_margin else ""), flush=True)
         clock.mark()
         timed.close()
         if preempted:
             save_preemption_checkpoint(checkpointer, epoch_counter, epoch,
-                                       {"train_state": state_tree(state)})
+                                       {"train_state": tree_fn(state)})
             break
         logger.log_stats(
             {"epoch": epoch, "time_s": round(time.time() - t0, 1),
@@ -261,10 +287,9 @@ def main(argv=None):
              "avg_acc": fetch_mean(accs) if accs else None})
         print_epoch_summary(epoch, clock, timed, loader.batch_size,
                             time.time() - t0, device)
-        checkpointer.save_checkpoint(epoch, {"train_state": state_tree(state)})
+        checkpointer.save_checkpoint(epoch, {"train_state": tree_fn(state)})
     tracer.close()
     shutdown.finalize(preempted)
-
 
 if __name__ == "__main__":
     main()

@@ -7,8 +7,11 @@ context-aware mask (CAM), statistics pooling (unbiased std), and a k=1
 ``Conv1d`` embedding layer with an affine-free BatchNorm. Attribute names
 are the reference's state_dict keys (``head.layer1.0.conv1``,
 ``xvector.block1.tdnnd1.cam_layer.linear_local``,
-``xvector.dense.nonlinear.batchnorm``). The JAX module's
-``memory_efficient`` (remat for training) is not ported.
+``xvector.dense.nonlinear.batchnorm``). ``memory_efficient`` (training
+only) recomputes each dense layer in the backward pass, as the JAX
+module's ``nn.remat`` per ``CAMDenseTDNNLayer``
+(``models/common.py::checkpointed``: the recomputation leaves the
+BatchNorm running statistics alone).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speaker3d_tpu_torch.models.common import batch_norm1d, batch_norm2d
+from speaker3d_tpu_torch.models.common import (
+    batch_norm1d, batch_norm2d, checkpointed)
 
 
 class NonLinear(nn.Sequential):
@@ -131,20 +135,25 @@ class CAMDenseTDNNLayer(nn.Module):
 
 class CAMDenseTDNNBlock(nn.ModuleList):
     """Dense connectivity: each layer's output is concatenated onto its
-    input along channels."""
+    input along channels. ``memory_efficient``: each layer recomputed in
+    the backward (training with autograd on)."""
 
     def __init__(self, num_layers: int, in_channels: int, out_channels: int,
                  bn_channels: int, kernel_size: int, dilation: int,
                  config_str: str):
         super().__init__()
+        self.memory_efficient = False
         for i in range(num_layers):
             self.add_module(f"tdnnd{i + 1}", CAMDenseTDNNLayer(
                 in_channels + i * out_channels, out_channels, bn_channels,
                 kernel_size, dilation, config_str))
 
     def forward(self, x):
+        remat = (self.memory_efficient and self.training
+                 and torch.is_grad_enabled())
         for layer in self:
-            x = torch.cat([x, layer(x)], dim=1)
+            x = torch.cat([x, checkpointed(layer, x) if remat else layer(x)],
+                          dim=1)
         return x
 
 
@@ -204,9 +213,13 @@ class CAMPPlus(nn.Module):
     """Input: log-mel features [B, T, feat_dim]. Output: [B, embedding_size].
     7.2M parameters at the default config."""
 
+    # the JAX module's Dense (``compat/flax_convert.py``)
+    flax_dense_names = ("xvector.dense.linear",)
+
     def __init__(self, feat_dim: int = 80, embedding_size: int = 512,
                  growth_rate: int = 32, bn_size: int = 4,
-                 init_channels: int = 128, config_str: str = "batchnorm-relu"):
+                 init_channels: int = 128, config_str: str = "batchnorm-relu",
+                 memory_efficient: bool = False):
         super().__init__()
         self.head = FCM(feat_dim=feat_dim)
         layers = [("tdnn", TDNNLayer(self.head.out_channels, init_channels, 5,
@@ -225,6 +238,29 @@ class CAMPPlus(nn.Module):
                    ("stats", StatsPool()),
                    ("dense", DenseLayer(channels * 2, embedding_size))]
         self.xvector = nn.Sequential(OrderedDict(layers))
+        self.memory_efficient = memory_efficient
+
+    @property
+    def memory_efficient(self) -> bool:
+        return self.xvector.block1.memory_efficient
+
+    @memory_efficient.setter
+    def memory_efficient(self, on: bool) -> None:
+        for i in (1, 2, 3):
+            getattr(self.xvector, f"block{i}").memory_efficient = bool(on)
+
+    @property
+    def flax_joined_names(self) -> tuple:
+        """The JAX module's dotted submodule names: ``xvector.<child>``, and
+        under a dense block, transit or dense layer ``xvector.<child>.<sub>``
+        (``xvector.block1.tdnnd1``)."""
+        names = []
+        for child, mod in self.xvector.named_children():
+            names.append(f"xvector.{child}")
+            if isinstance(mod, (CAMDenseTDNNBlock, TransitLayer, DenseLayer)):
+                names += [f"xvector.{child}.{sub}"
+                          for sub, _ in mod.named_children()]
+        return tuple(names)
 
     def forward(self, x):
         return self.xvector(self.head(x))

@@ -6,7 +6,9 @@ eval mode) whose training mode updates the running statistics as the JAX
 package's ``flax.linen.BatchNorm`` does: ``running = 0.99 * running + 0.01 *
 batch``, with the *biased* batch variance (torch's own default is momentum
 0.1 with the unbiased variance). ``frozen_running_stats`` turns the update
-off for a block, as the recomputation of a checkpointed block needs.
+off for a block, as the recomputation of a checkpointed block needs:
+``checkpointed`` runs a function through ``torch.utils.checkpoint`` that
+way, and ``remat_blocks`` runs each block of a ``Sequential`` through it.
 
 In a bf16 train step (``train/sv_train.py``: bf16 input, bf16 casts of
 the parameters) the training-mode forward is Flax's under
@@ -22,6 +24,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5  # Flax BatchNorm's default epsilon, which the JAX models use
 BN_MOMENTUM = 0.99  # Flax BatchNorm's default, which the JAX models use
@@ -38,6 +41,32 @@ def frozen_running_stats():
         yield
     finally:
         _frozen[0] -= 1
+
+
+def _recompute_without_bn_updates():
+    """``checkpoint``'s (forward, recompute) contexts: the recomputation in
+    the backward must not update the running statistics a second time."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, as the JAX package's
+    ``nn.remat`` / ``jax.checkpoint``); the recomputation leaves the
+    BatchNorm running statistics alone, so they end as a plain step leaves
+    them."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_recompute_without_bn_updates)
+
+
+def remat_blocks(layer: nn.Sequential, x, remat: bool):
+    """``layer(x)``; with ``remat``, in training with autograd on, each of
+    its blocks through ``checkpointed``."""
+    if not (remat and layer.training and torch.is_grad_enabled()):
+        return layer(x)
+    for block in layer:
+        x = checkpointed(block, x)
+    return x
 
 
 class _FlaxStatsBatchNorm:

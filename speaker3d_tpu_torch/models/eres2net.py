@@ -12,6 +12,10 @@ The variants differ in (m_channels, base_width, scale, expansion):
 base (32, 32, 2, 2), large (64, 32, 2, 2), huge (64, 24, 3, 4). In eval
 mode the scale-2 blocks of layer1-2 (base and large) run through the Res2
 block kernel, as in ERes2NetV2; huge is scale 3 and stays on cuDNN.
+``remat`` (training only) recomputes each residual block of layer1-4 in
+the backward pass, as the JAX module's ``nn.remat`` per block
+(``models/common.py::remat_blocks``: the recomputation leaves the
+BatchNorm running statistics alone).
 Attribute names are the reference's state_dict keys.
 """
 
@@ -23,7 +27,8 @@ import torch
 from torch import nn
 
 from speaker3d_tpu_torch.models.common import (
-    add_embedding_layers, batch_norm2d, embedding_layers, trunk_freq)
+    add_embedding_layers, batch_norm2d, embedding_layers, remat_blocks,
+    trunk_freq)
 from speaker3d_tpu_torch.models.eres2netv2 import AFF, BasicBlockERes2NetV2
 from speaker3d_tpu_torch.models.pooling import get_pooling, pooling_output_mult
 
@@ -37,8 +42,10 @@ class ERes2Net(nn.Module):
                  m_channels: int = 32, feat_dim: int = 80,
                  embedding_size: int = 192, base_width: int = 32,
                  scale: int = 2, expansion: int = 2,
-                 pooling_func: str = "TSTP", two_emb_layer: bool = False):
+                 pooling_func: str = "TSTP", two_emb_layer: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.pool = get_pooling(pooling_func)
         m = m_channels
         self.conv1 = nn.Conv2d(1, m, 3, padding=1, bias=False)
@@ -69,12 +76,12 @@ class ERes2Net(nn.Module):
     def forward(self, x):
         x = x.transpose(1, 2).unsqueeze(1)          # [B, T, F] -> [B, 1, F, T]
         out = torch.relu(self.bn1(self.conv1(x)))
-        out1 = self.layer1(out)
-        out2 = self.layer2(out1)
+        out1 = remat_blocks(self.layer1, out, self.remat)
+        out2 = remat_blocks(self.layer2, out1, self.remat)
         fuse12 = self.fuse_mode12(out2, self.layer1_downsample(out1))
-        out3 = self.layer3(out2)
+        out3 = remat_blocks(self.layer3, out2, self.remat)
         fuse123 = self.fuse_mode123(out3, self.layer2_downsample(fuse12))
-        out4 = self.layer4(out3)
+        out4 = remat_blocks(self.layer4, out3, self.remat)
         fuse1234 = self.fuse_mode1234(out4, self.layer3_downsample(fuse123))
         return embedding_layers(self, self.pool(fuse1234))
 

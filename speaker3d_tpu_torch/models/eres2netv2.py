@@ -11,33 +11,25 @@ In eval mode every scale-2 block without AFF (layer1-2 of the 17.8M model)
 runs through ``ops/kernels/res2_block_kernel.py`` with its BatchNorms folded
 once per loaded weights; training mode keeps the unfused path. ``remat``
 (training only) recomputes each residual block in the backward pass
-(``torch.utils.checkpoint``), as the JAX module's ``nn.remat`` per block;
-the recomputation leaves the BatchNorm running statistics alone, so they
-end as a plain step leaves them.
+(``models/common.py::remat_blocks``), as the JAX module's ``nn.remat`` per
+block; the recomputation leaves the BatchNorm running statistics alone, so
+they end as a plain step leaves them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from speaker3d_tpu_torch.models.common import (
-    add_embedding_layers, batch_norm2d, embedding_layers, frozen_running_stats,
-    relu20, trunk_freq)
+    add_embedding_layers, batch_norm2d, embedding_layers, relu20, remat_blocks,
+    trunk_freq)
 from speaker3d_tpu_torch.models.pooling import get_pooling, pooling_output_mult
 from speaker3d_tpu_torch.ops.kernels.res2_block_kernel import (
     fold_res2_block, res2_block)
-
-
-def _recompute_without_bn_updates():
-    """``checkpoint``'s (forward, recompute) contexts: the recomputation in
-    the backward must not update the running statistics a second time."""
-    return contextlib.nullcontext(), frozen_running_stats()
 
 
 class AFF(nn.Module):
@@ -171,21 +163,13 @@ class ERes2NetV2(nn.Module):
             self, pooling_output_mult(pooling_func) * top * trunk_freq(feat_dim),
             embedding_size, two_emb_layer)
 
-    def _layer(self, layer: nn.Sequential, x):
-        if not (self.remat and self.training and torch.is_grad_enabled()):
-            return layer(x)
-        for block in layer:
-            x = checkpoint(block, x, use_reentrant=False,
-                           context_fn=_recompute_without_bn_updates)
-        return x
-
     def forward(self, x):
         x = x.transpose(1, 2).unsqueeze(1)          # [B, T, F] -> [B, 1, F, T]
         out = torch.relu(self.bn1(self.conv1(x)))
-        out1 = self._layer(self.layer1, out)
-        out2 = self._layer(self.layer2, out1)
-        out3 = self._layer(self.layer3, out2)
-        out4 = self._layer(self.layer4, out3)
+        out1 = remat_blocks(self.layer1, out, self.remat)
+        out2 = remat_blocks(self.layer2, out1, self.remat)
+        out3 = remat_blocks(self.layer3, out2, self.remat)
+        out4 = remat_blocks(self.layer4, out3, self.remat)
         fuse34 = self.fuse34(out4, self.layer3_ds(out3))
         return embedding_layers(self, self.pool(fuse34))
 

@@ -25,14 +25,20 @@ backward of the cast). Not ``torch.autocast``, which keeps BatchNorm and
 reductions in fp32 and casts per op: a different computation.
 
 One card: ``model_parallel > 1`` (classes sharded over cards) is ROADMAP.md
-M14. ``remat`` recomputes ERes2NetV2's residual blocks in the backward
-(``models/eres2netv2.py``); other backbones' remat is refused with the
-ROADMAP.md item that ports it.
+M14. ``remat`` recomputes activations in the backward instead of keeping
+them, as the JAX step chooses: a model with a ``remat`` field (ERes2NetV2,
+ERes2Net) recomputes each residual block, else one with a
+``memory_efficient`` field (CAM++) each dense layer, and every other
+backbone (ResNet, Res2Net, ECAPA-TDNN, x-vector) the whole backbone
+forward (``models/common.py::checkpointed``). No recomputation updates the
+BatchNorm running statistics a second time, and in a bf16 step it reads
+the same bf16 casts of the parameters.
 
 The train state's checkpoint tree (``state_tree``) holds ``model/<state_dict
 name>``, ``cls_w``, ``momentum/model/<parameter name>``, ``momentum/cls_w``
-and ``step``; ``load_state_tree`` also reads the JAX trainer's tree
-(``params/...``, ``batch_stats/...``) through ``state_dict_from_flax``.
+and ``step``; ``flax_state_tree`` writes the JAX trainer's tree
+(``params/...``, ``batch_stats/...``), which ``load_state_tree`` also
+reads, through ``state_dict_from_flax``.
 """
 
 from __future__ import annotations
@@ -44,15 +50,14 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
+from speaker3d_tpu_torch.compat.flax_convert import (
+    flax_from_state_dict, state_dict_from_flax)
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.eval.embedding import matmul_precision
+from speaker3d_tpu_torch.models.common import checkpointed
 from speaker3d_tpu_torch.train.losses import sharded_arc_margin_loss
 from speaker3d_tpu_torch.train.schedulers import margin_at_step, warmup_cosine_lr
 
-REMAT_NOT_PORTED = ("remat: true for {name} is not ported to the PyTorch "
-                    "package yet (ROADMAP.md Queue 1, remat for the other "
-                    "backbones); ERes2NetV2 takes it")
 MODEL_PARALLEL_NOT_PORTED = ("model_parallel > 1 (classes sharded over "
                              "several cards) is ROADMAP.md M14; one card "
                              "holds the whole classifier")
@@ -100,9 +105,18 @@ def check_train_options(model, cfg: SVTrainConfig,
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
                          f"expected 'float32' or 'bfloat16'")
-    if cfg.remat and not hasattr(model, "remat"):
-        raise NotImplementedError(REMAT_NOT_PORTED.format(
-            name=type(model).__name__))
+
+
+def enable_remat(model: torch.nn.Module) -> bool:
+    """The JAX step's choice of recomputation: sets the model's ``remat``
+    field, else its ``memory_efficient`` field, to True and returns False;
+    returns True for a model with neither, whose whole forward the step then
+    recomputes."""
+    for field in ("remat", "memory_efficient"):
+        if hasattr(model, field):
+            setattr(model, field, True)
+            return False
+    return True
 
 
 def init_sv_train_state(model: torch.nn.Module, cfg: SVTrainConfig, *,
@@ -160,8 +174,7 @@ def make_sv_train_step(model: torch.nn.Module, cfg: SVTrainConfig,
     ``loss`` and ``acc`` as 0-d tensors on the device (no host sync), ``lr``
     and ``margin`` as 0-d float32 CPU tensors."""
     check_train_options(model, cfg, model_parallel)
-    if cfg.remat:
-        model.remat = True
+    remat_whole = cfg.remat and enable_remat(model)
     batch_key = "wavs" if feature_fn is not None else "feats"
     m, wd = cfg.momentum, cfg.weight_decay
     half = cfg.compute_dtype == "bfloat16"
@@ -190,8 +203,12 @@ def make_sv_train_step(model: torch.nn.Module, cfg: SVTrainConfig,
             names, params = zip(*state.model.named_parameters())
             with (bf16_parameters(state.model) if half
                   else contextlib.nullcontext()):
-                emb = state.model(x.to(torch.bfloat16) if half else x)
-                cos = _l2norm(emb.float()) @ _l2norm(state.cls_w).T
+                x = x.to(torch.bfloat16) if half else x
+                emb = (checkpointed(state.model, x) if remat_whole
+                       else state.model(x))
+                # the classifier's dtype: fp32 after a bf16 backbone
+                cls_w = state.cls_w
+                cos = _l2norm(emb.to(cls_w.dtype)) @ _l2norm(cls_w).T
                 ce = sharded_arc_margin_loss(cos, labels, 0, float(margin),
                                              cfg.scale, cfg.easy_margin)
                 b = cos.shape[0]
@@ -228,6 +245,23 @@ def state_tree(state: SVTrainState) -> Dict:
             "cls_w": _numpy(state.cls_w),
             "momentum": {"model": {k: _numpy(v) for k, v in
                                    state.momentum["model"].items()},
+                         "cls_w": _numpy(state.momentum["cls_w"])},
+            "step": np.asarray(state.step, np.int32)}
+
+
+def flax_state_tree(state: SVTrainState) -> Dict:
+    """The checkpoint tree of ``state`` in the JAX trainer's layout
+    (``params``, ``batch_stats``, ``cls_w``, ``momentum/params``,
+    ``momentum/cls_w``, ``step``), which either package's trainer resumes."""
+    model = state.model
+    names = (getattr(model, "flax_joined_names", ()),
+             getattr(model, "flax_dense_names", ()))
+    variables = flax_from_state_dict(model.state_dict(), *names)
+    moments = flax_from_state_dict(state.momentum["model"], *names)
+    return {"params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
+            "cls_w": _numpy(state.cls_w),
+            "momentum": {"params": moments["params"],
                          "cls_w": _numpy(state.momentum["cls_w"])},
             "step": np.asarray(state.step, np.int32)}
 

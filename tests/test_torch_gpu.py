@@ -1139,3 +1139,117 @@ def test_diarization_driver_on_the_card_matches_the_cli(cuda, tmp_path,
                     == (tmp_path / "cli" / (base + ext)).read_bytes())
     summary = json.loads((tmp_path / "summary.json").read_text())
     assert sorted(summary) == ["c0_speech_estimate", "c1_speech_estimate"]
+
+
+def test_fbank_kernel_at_the_para_window_and_shape(cuda):
+    """K1 with the Hamming window (train_para's frontend) at its train
+    shape [256, 48000]: the window is folded into B, so the kernel is the
+    same; against the plain version at rtol = atol = 1e-4 and the Kaldi
+    oracle."""
+    rng = np.random.default_rng(17)
+    wav = torch.from_numpy((rng.standard_normal((256, 48000)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    cfg = FbankConfig(window_type="hamming")
+    fb = KaldiFbank(cfg, device=cuda)
+    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift)
+    launches = fk.fbank_features.launches
+    with matmul_precision("float32"):
+        got = fk.fbank_features(wav, fb._B, fb._mel, fb._packed, **kw)
+        want = fk.fbank_plain(wav, fb._B, fb._mel, **kw)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == launches + 1
+    assert got.shape == want.shape == (256, 298, 80)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _oracle_ok(got, want)
+
+
+PARA_CONFIG = {"fbank_dim": 80, "lfr_m": 7, "lfr_n": 6, "wav_len": 3.0,
+               "asr_encoder": {"args": {"d_model": 64, "num_heads": 4,
+                                        "ffn_dim": 128, "num_layers": 2,
+                                        "kernel_size": 11}}}
+
+
+def test_para_step_on_the_card_matches_the_cpu(cuda):
+    """One fused train_para step (the frozen frontend with K1 at the
+    Hamming window as ``feature_fn``, a small ERes2Net on the encoder's
+    output) on the card against the CPU's from one state: one K1 launch,
+    the encoder unchanged, loss to rtol 1e-4, running statistics to 1e-4
+    and parameters to 1e-5 (an lr-1e-4 step)."""
+    import copy
+
+    from speaker3d_tpu_torch.cli.train_para import build_frozen_frontend
+    from speaker3d_tpu_torch.models.eres2net import ERes2Net
+    from speaker3d_tpu_torch.train import sv_train
+
+    torch.manual_seed(4)
+    base = ERes2Net(num_blocks=(1, 1, 1, 1), m_channels=16, feat_dim=64)
+    cfg = sv_train.SVTrainConfig(num_classes=8, step_per_epoch=10)
+    rng = np.random.default_rng(4)
+    batch = {"wavs": torch.from_numpy((rng.standard_normal((8, 48000))
+                                       * 0.1).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 8, 8))}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        front = build_frozen_frontend(PARA_CONFIG, 7, dev)[0]
+        enc0 = {k: v.clone() for k, v in front.encoder.state_dict().items()}
+        model = copy.deepcopy(base)
+        state = sv_train.init_sv_train_state(model, cfg, seed=4, device=dev)
+        step = sv_train.make_sv_train_step(model, cfg, feature_fn=front)
+        launches = fk.fbank_features.launches
+        loss = float(step(state, {k: v.to(dev) for k, v in
+                                  batch.items()})["loss"])
+        for k, v in front.encoder.state_dict().items():
+            assert torch.equal(v, enc0[k]), k
+        out[dev.type] = (loss, {k: v.cpu() for k, v in
+                                model.state_dict().items()},
+                         fk.fbank_features.launches - launches)
+    (lc, sc, nc), (lh, sh, nh) = out["cuda"], out["cpu"]
+    assert (nc, nh) == (1, 0)
+    assert np.isfinite(lc) and lc == pytest.approx(lh, rel=1e-4)
+    for k, v in sh.items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(sc[k], v, rtol=1e-4, atol=1e-4)
+        elif v.is_floating_point():
+            torch.testing.assert_close(sc[k], v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["eres2net", "campplus", "ecapa"])
+def test_remat_equals_without_on_the_card(cuda, name):
+    """Remat on every kind of backbone (per block, per dense layer, the
+    whole forward) against the plain step from one state, through K1:
+    loss and running statistics within 1e-5 (cuDNN's fp32 algorithms are
+    not bit-deterministic), every ``num_batches_tracked`` 1."""
+    from speaker3d_tpu_torch.models.campplus import CAMPPlus
+    from speaker3d_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+    from speaker3d_tpu_torch.models.eres2net import ERes2Net
+    from speaker3d_tpu_torch.train import sv_train
+
+    build = {"eres2net": lambda: ERes2Net(num_blocks=(1, 1, 1, 1),
+                                          m_channels=16),
+             "campplus": lambda: CAMPPlus(embedding_size=192,
+                                          growth_rate=16, bn_size=2,
+                                          init_channels=32),
+             "ecapa": lambda: ECAPA_TDNN(channels=(64, 64, 64, 64, 192),
+                                         attention_channels=16,
+                                         se_channels=16)}[name]
+    fb = KaldiFbank(FbankConfig(), mean_norm=True, device=cuda)
+    rng = np.random.default_rng(5)
+    batch = {"wavs": torch.from_numpy((rng.standard_normal((16, 48000))
+                                       * 0.1).astype(np.float32)).to(cuda),
+             "labels": torch.from_numpy(rng.integers(0, 8, 16)).to(cuda)}
+    out = []
+    for remat in (False, True):
+        torch.manual_seed(5)
+        model = build()
+        cfg = sv_train.SVTrainConfig(num_classes=8, step_per_epoch=10,
+                                     remat=remat)
+        state = sv_train.init_sv_train_state(model, cfg, seed=5, device=cuda)
+        step = sv_train.make_sv_train_step(model, cfg, feature_fn=fb)
+        out.append((float(step(state, batch)["loss"]), model.state_dict()))
+    (loss, sd), (r_loss, r_sd) = out
+    assert r_loss == pytest.approx(loss, rel=1e-5, abs=1e-5)
+    for k, v in sd.items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(r_sd[k], v, rtol=1e-5, atol=1e-5)
+        elif k.endswith("num_batches_tracked"):
+            assert int(r_sd[k]) == int(v) == 1, k

@@ -86,7 +86,8 @@ def test_package_has_the_slice_modules():
                  "cli.train_face_detector", "cli.infer_diarization_video",
                  "data.dataset_asd", "train.asd_train", "cli.train_asd",
                  "cli.run_diarization_simple", "cli.run_diarization_on_dir",
-                 "cli.run_diarization_speech_estimate"):
+                 "cli.run_diarization_speech_estimate", "cli.train_para",
+                 "compat.funasr_convert"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -200,8 +201,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
+    from speaker3d_tpu_torch.cli import train_para
     for trainer in (train, train_vad, train_segmentation, train_ssl,
-                    train_face_detector):
+                    train_face_detector, train_para):
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer.main(["--config", "c.yaml"])
     for cli, argv in ((extract_ssl, ["--exp_dir", "x", "--data", "s",

@@ -260,11 +260,13 @@ def test_unported_options_are_refused():
         tsv.make_sv_train_step(model, cfg._replace(compute_dtype="float16"))
     with pytest.raises(NotImplementedError, match="M14"):
         tsv.make_sv_train_step(model, cfg, model_parallel=2)
+    # remat runs on every backbone (tests/test_torch_remat.py): CAM++ takes
+    # it as its memory_efficient field
     from speaker3d_tpu_torch.models.campplus import CAMPPlus
 
-    with pytest.raises(NotImplementedError, match="CAMPPlus.*remat"):
-        tsv.make_sv_train_step(CAMPPlus(feat_dim=80, embedding_size=32),
-                               cfg._replace(remat=True))
+    cam = CAMPPlus(feat_dim=80, embedding_size=32)
+    tsv.make_sv_train_step(cam, cfg._replace(remat=True))
+    assert cam.memory_efficient
 
 
 
