@@ -29,7 +29,7 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    90 s cap), with the 17.8M model: ``extract`` chunked to a Kaldi ark,
    chunked with duration buckets to npz, and exact; ``infer_sv`` on one
    pair; ``infer_sv_batch`` on a wav list that names one missing file;
-   ``extract`` chunked on a seeded 12,800 s corpus (20 full [64, 160000]
+   ``extract`` chunked on a seeded 6,400 s corpus (10 full [64, 160000]
    batches, the throughput run); ``compute_score_metrics`` on a trial list
    over the ark. Launch counts per run (K1 > 0, or the exact number of
    embed calls, and K2 7x K1), every output finite; against the plain
@@ -135,10 +135,10 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     ``configs/eres2netv2_w24s4ep4.yaml`` (the diarization CLI's default
     model, 53.5M, with its ``remat: true``) and ``configs/campplus.yaml``,
     both as shipped (``compute_dtype: bfloat16``, batch 256, full width)
-    but for the paths and the epochs (cut to 4 epochs of item 14's corpus,
-    16 steps; printed), then w24s4ep4 once more with
-    ``--compute_dtype=float32`` (one epoch of the corpus' first 512
-    utterances, 2 steps): per run the median step time
+    but for the paths and the epochs (cut to 2 epochs of item 14's corpus,
+    8 steps; printed), then w24s4ep4 once more with
+    ``--compute_dtype=float32`` (one epoch of the corpus' first 768
+    utterances, 3 steps): per run the median step time
     of the last epoch and the first step, samples/s, the data-wait share,
     peak memory, launches (K1 once per step, K2 never); the bf16-over-fp32
     step-time ratio; one w24s4ep4 step at B = 64 from the same weights and
@@ -268,7 +268,30 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     tolerances), the peak lower with remat per block and per dense layer
     and within REMAT_WHOLE_SLACK of the plain one for the whole backbone,
     both printed. K1 (item 7) is also held at the Hamming window at [256,
-    48000].
+    48000];
+23. (run after item 12) the bf16 embed path: ``build_embedding_fn(...,
+    dtype=torch.bfloat16)`` on the 17.8M model and w24s4ep4 (the model's
+    parameters and buffers cast to bf16, the fbank in fp32): the
+    diarization pipeline over the 120 s conversation, first and warm call,
+    the warm RTF beside item 3's fp32 one, launches (K1 > 0, K2's bf16
+    variant 7 x K1 with the 17.8M model and never with w24s4ep4, its fp32
+    variant never); one [64, 48000] and one [64, 160000] batch each, bf16
+    and fp32 ms, the bf16 embeddings against the fp32 ones at cosine >=
+    0.999 (bench.py's gate);
+24. (run after item 23) int8 post-training quantization
+    (``eval/quant.py``) at registry width on the 17.8M model, CAM++ (192)
+    and ECAPA-TDNN (1024 x 4, 3072): scales calibrated on two [64, 160000]
+    batches of the SV utterances, ``quantized_apply_fn`` (bf16 around the
+    int8 products) on a third: ms a batch beside the fp32 embed call's,
+    cosine >= 0.99 against fp32 (tests/test_quant.py's gate), launches (K1
+    once, K2 of neither dtype: the int8 path runs every Res2 block's
+    convs);
+25. K2's bf16 variant at the shapes item 8 times on the path (the 17.8M
+    model at every L, ERes2Net base and large at the 10 s chunk; B = 64)
+    against its plain bf16 version (at most 1% of the elements differ,
+    none by more than two bf16 ulps of the output's scale), its ms beside
+    the plain bf16 version's and item 8's fp32 kernel's at the same shape,
+    the bound at the bf16 tensor-core rate.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
@@ -281,7 +304,9 @@ driver, ASR-encoder-fused training and remat-check runs
 (``launches_by_path`` apart). Each phase's wall time is printed
 as ``[phase] <name> <s>``.
 
-It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+K2's bf16 variant (``res2_block_bf16``) gives its time per [64, L] batch
+of the 17.8M model at the chunk calls' L and its launches on the bf16 embed
+path. It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Times come from CUDA events around many back-to-back calls
 (median of a few such runs, after warm-up) on the card named in the output.
 """
@@ -308,6 +333,15 @@ PEAK_BF16_TC_FLOPS = 989e12       # H100 SXM, bf16 on the tensor cores, dense
 PEAK_TF32_TC_FLOPS = 495e12       # H100 SXM, TF32 on the tensor cores, dense
 TF32_PASSES = 3                   # K1's and K2's fp32-accurate products: 3xTF32
 K2_MAX_ABS_ERR = 1e-4             # fp32 level (one TF32 pass: ~4e-3)
+# K2's bf16 variant against its plain bf16 version: both round to bf16 at
+# the TPU kernel's points and sum in fp32 in their own orders, so an element
+# near a rounding boundary may round the other way: at most 1% of the
+# elements differ, none by more than two bf16 ulps (2 x 2^-8) of the
+# output's scale
+K2_BF16_DIFF_SHARE = 0.01
+K2_BF16_MAX_ULPS = 2.0
+BF16_EMBED_COS = 0.999            # bf16 embed against fp32: bench.py's gate
+INT8_COS = 0.99                   # int8 against fp32: tests/test_quant.py's
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MODEL_W24 = "iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common"
 MODEL_17M = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
@@ -598,6 +632,108 @@ def phase_k2(lengths, main_len: int, predict_lengths=()) -> dict:
             "library_ms": None,
             "per_batch": [{"model": m, "L": L, "B": b, **v}
                           for (m, L, b), v in per_batch.items()],
+            "shapes": rows}
+
+
+def phase_k2_bf16(lengths, main_len: int, k2: dict) -> dict:
+    """K2's bf16 variant at the shapes the fp32 phase times on the path
+    (the 17.8M model at every L of the path, ERes2Net base and large at the
+    SV chunk; B = 64) against its plain bf16 version, with the fp32
+    kernel's time at the same shape (``k2``, phase_k2's result) beside
+    it."""
+    import torch
+
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.ops.fbank import FbankConfig
+    from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
+
+    cfg = FbankConfig()
+    frames = lambda L: 1 + (L - cfg.frame_length) // cfg.frame_shift
+    runs = ([("17.8M", L) for L in lengths]
+            + [(m, SV_CHUNK) for m in ("eres2net_base", "eres2net_large")])
+    gen = torch.Generator().manual_seed(2)
+    gen_x = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for model, L in runs:
+        for name, cin, planes, stride, f, t, count in k2_shapes(
+                frames(L), K2_MODELS[model][0]):
+            blk = _random_block(cin, planes, stride, gen, K2_MODELS[model][1])
+            p16 = blk.folded(torch.bfloat16)
+            x = torch.rand((BATCH, cin, f, t), generator=gen_x,
+                           device="cuda").bfloat16()
+            with torch.inference_mode(), matmul_precision("float32"):
+                got = rk.res2_block_cuda(x, p16, stride)
+                want = rk.res2_block_plain(x, p16, stride)
+                torch.cuda.synchronize()
+                g, w = got.float(), want.float()
+                err = float((g - w).abs().max())
+                share = float((g != w).float().mean())
+                ulps = err / (float(w.abs().max()) * 2.0 ** -8)
+                if (not bool(torch.isfinite(g).all())
+                        or share > K2_BF16_DIFF_SHARE
+                        or ulps > K2_BF16_MAX_ULPS):
+                    raise AssertionError(
+                        f"K2 bf16 {model} {name} at [{BATCH}, {L}]: {share:.3%} "
+                        f"of the elements differ, the largest by {ulps:.2f} "
+                        f"bf16 ulps of the scale ({K2_BF16_DIFF_SHARE:.0%}, "
+                        f"{K2_BF16_MAX_ULPS} allowed)")
+                ms = cuda_ms(lambda: rk.res2_block_cuda(x, p16, stride),
+                             iters=5, runs=3)
+                plain = cuda_ms(lambda: rk.res2_block_plain(x, p16, stride),
+                                iters=5, runs=3)
+            (ms32,) = [r["ms"] for r in k2["shapes"] if (
+                r["model"], r["L"], r["B"], r["shape"]) == (model, L, BATCH,
+                                                            name)]
+            wdt, cout = p16.width, got.shape[1]
+            pos = got.shape[0] * got.shape[2] * got.shape[3]
+            flops = 2 * pos * (cin * 2 * wdt + 2 * 9 * wdt * wdt + 2 * wdt * cout
+                               + (cin * cout if p16.wsc is not None else 0))
+            n_weights = sum(v.numel() for v in (p16.w1, p16.wc1, p16.wc2,
+                                                p16.w3))
+            n_weights += p16.wsc.numel() if p16.wsc is not None else 0
+            n_bias = sum(v.numel() for v in (p16.b1, p16.bc1, p16.bc2, p16.b3))
+            # bf16 x (the even rows and columns at stride 2), out and
+            # weights, fp32 biases
+            n_bytes = (2 * (x.numel() // (stride * stride) + got.numel()
+                            + n_weights) + 4 * n_bias)
+            b, by = bound_ms(n_bytes, flops, PEAK_BF16_TC_FLOPS)
+            log(f"[K2 bf16 {model} B={BATCH} L={L} {name}] x {tuple(x.shape)} "
+                f"w {wdt} -> {tuple(got.shape)} max_abs_err {err:.3g} "
+                f"({share:.3%} of the elements differ, {ulps:.2f} ulps of "
+                f"the scale) kernel {ms:.4f} ms plain bf16 {plain:.4f} ms "
+                f"fp32 kernel {ms32:.4f} ms bound {b:.4f} ms ({by}; bf16); "
+                f"{b / ms:.1%} of the bound, {flops / ms / 1e9:.1f} TFLOP/s")
+            rows.append({"model": model, "B": BATCH, "L": L, "shape": name,
+                         "x": list(x.shape), "w": wdt, "blocks": count,
+                         "max_abs_err": err, "diff_share": share,
+                         "max_ulps": ulps, "ms": ms, "plain_ms": plain,
+                         "fp32_ms": ms32, "bound_ms": b, "bound_by": by})
+            del x, got, want, g, w
+    per_batch = {}
+    for model, L in runs:
+        sel = [r for r in rows if (r["model"], r["L"]) == (model, L)]
+        per_batch[(model, L)] = pb = {
+            k: sum(r["blocks"] * r[k] for r in sel)
+            for k in ("ms", "plain_ms", "fp32_ms", "bound_ms")}
+        log(f"[K2 bf16 {model} per [{BATCH}, {L}] batch, 7 launches] kernel "
+            f"{pb['ms']:.3f} ms plain bf16 {pb['plain_ms']:.3f} ms fp32 "
+            f"kernel {pb['fp32_ms']:.3f} ms bound {pb['bound_ms']:.3f} ms "
+            f"(bf16); {pb['bound_ms'] / pb['ms']:.1%} of the bound")
+    top = [r for r in rows if r["model"] == "17.8M" and r["L"] == main_len]
+    main = per_batch[("17.8M", main_len)]
+    return {"name": "res2_block_bf16", "route": "cuda",
+            "source": "speaker3d_tpu_torch/csrc/res2_block.cu",
+            "replaces": "speaker3d_tpu/ops/pallas/res2_block_kernel.py:143",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # per [64, main_len] embed batch of the 17.8M model: the 7
+            # launches of layer1-2
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                             for r in top) else "bytes"),
+            "library_ms": None, "fp32_ms": main["fp32_ms"],
+            "per_batch": [{"model": m, "L": L, "B": BATCH, **v}
+                          for (m, L), v in per_batch.items()],
             "shapes": rows}
 
 
@@ -944,9 +1080,9 @@ SV_CHUNK = 10 * FS               # extract's chunk: 10 s at 16 kHz
 SV_SECONDS = (0.02, 0.4, 1.3, 2.9, 6.5, 10.0, 17.3, 42.0, 95.0)
 SV_LONGEST = int(max(SV_SECONDS) * FS)  # exact mode's longest batch-1 call
 SV_SPEAKERS = 3
-# the throughput corpus: 160 utterances of 80 s, 1,280 10 s chunks, 20 full
-# [64, 160000] batches
-SV_CORPUS_UTTS, SV_CORPUS_SECONDS = 160, 80.0
+# the throughput corpus: 80 utterances of 80 s, 640 10 s chunks, 10 full
+# [64, 160000] batches (PERF.md section 4 lists the cuts)
+SV_CORPUS_UTTS, SV_CORPUS_SECONDS = 80, 80.0
 
 
 def synth_utterance(seconds: float, speaker: int, seed: int) -> np.ndarray:
@@ -989,7 +1125,14 @@ def synth_corpus(folder: str, n_utts: int, seconds: float, seed: int) -> str:
 
 def _counted(fn) -> tuple:
     """Run ``fn`` with the K1 and K2 launch counts set to 0 just before;
-    (K1, K2) launches read just after."""
+    (K1, K2) launches read just after (``_counted3`` also K2's bf16
+    ones)."""
+    return _counted3(fn)[:2]
+
+
+def _counted3(fn) -> tuple:
+    """(K1, K2 fp32, K2 bf16) launches of ``fn``, every count set to 0
+    just before it and read just after."""
     import torch
 
     from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
@@ -997,16 +1140,24 @@ def _counted(fn) -> tuple:
 
     fk.fbank_features.launches = 0
     rk.res2_block.launches = 0
+    rk.res2_block.launches_bf16 = 0
     fn()
     torch.cuda.synchronize()
-    return fk.fbank_features.launches, rk.res2_block.launches
+    return (fk.fbank_features.launches, rk.res2_block.launches,
+            rk.res2_block.launches_bf16)
 
 
 def _counted_result(fn) -> tuple:
     """(``fn()``, K1 launches, K2 launches), counted as ``_counted``."""
+    return _counted_result3(fn)[:3]
+
+
+def _counted_result3(fn) -> tuple:
+    """(``fn()``, K1, K2 fp32, K2 bf16 launches), counted as
+    ``_counted3``."""
     box = []
-    k1, k2 = _counted(lambda: box.append(fn()))
-    return box[0], k1, k2
+    counts = _counted3(lambda: box.append(fn()))
+    return (box[0], *counts)
 
 
 def _min_cosine(got: dict, want: dict, what: str) -> float:
@@ -1466,6 +1617,158 @@ def phase_server(work: str, models: str, smi: str) -> dict:
     log(f"[serve cli] listening after {listening:.2f} s; one request, cosine "
         f"vs plain {stats['cli_min_cosine_vs_plain']:.7f}")
     return {"k1": k1, "k2": k2, "stats": stats}
+
+
+BF16_EMBED_LENGTHS = (3 * FS, SV_CHUNK)   # [64, 48000] and [64, 160000]
+INT8_MODELS = ((MODEL_17M, 7), ("iic/speech_campplus_sv_zh-cn_16k-common", 0),
+               ("iic/speech_ecapa-tdnn_sv_zh-cn_cnceleb_16k", 0))
+
+
+def _windows(wav: np.ndarray, L: int, seed: int):
+    """BATCH seeded windows of L samples of ``wav`` on the card."""
+    import torch
+
+    starts = np.random.default_rng(seed).integers(0, len(wav) - L + 1, BATCH)
+    return torch.from_numpy(np.stack([wav[s:s + L] for s in starts])).cuda()
+
+
+def phase_bf16_embed(models: str, pipe: dict) -> dict:
+    """build_embedding_fn(dtype=bfloat16) on the 17.8M model and w24s4ep4:
+    the diarization pipeline over the 120 s conversation (the main path:
+    K1, K2's bf16 variant 7x per embed batch with the 17.8M model, never
+    its fp32 one) and [64, 48000] / [64, 160000] batches against the fp32
+    embed call."""
+    import torch
+
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
+    from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
+
+    wav = synth_conversation()
+    out, k1_total, k2_bf16_total = {}, 0, 0
+    for model_id, k2_per_call in ((MODEL_17M, 7), (MODEL_W24, 0)):
+        embed16 = build_embedding_fn(load_pretrained(model_id, models),
+                                     device="cuda", precision="high",
+                                     dtype=torch.bfloat16)
+        embed32 = build_embedding_fn(load_pretrained(model_id, models),
+                                     device="cuda", precision="high")
+        diar = DiarizationPipeline(embed16, device="cuda")
+        walls = []
+
+        def diarize():
+            for _ in range(2):  # the first call, then a warm one
+                t0 = time.perf_counter()
+                diar(wav)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+
+        k1, k2, k2_16 = _counted3(diarize)
+        calls = 2 * -(-len(diar.last_chunks) // diar.batch_size)
+        if not (k1 > 0 and k2 == 0 and k2_16 == k2_per_call * k1):
+            raise AssertionError(f"{model_id} bf16 diarization: launches K1 "
+                                 f"{k1} K2 fp32 {k2} bf16 {k2_16}; want K1 > 0,"
+                                 f" no fp32 K2 and {k2_per_call} bf16 K2 per "
+                                 f"embed batch")
+        k1_total, k2_bf16_total = k1_total + k1, k2_bf16_total + k2_16
+        rtf = walls[-1] / (len(wav) / FS)
+        rtf32 = pipe["stage"][model_id]["warm_rtf"]
+        run = out[model_id] = {
+            "diarization": {"first_call_s": walls[0], "warm_s": walls[-1],
+                            "warm_rtf": rtf, "fp32_warm_rtf": rtf32,
+                            "embed_calls": calls, "k1": k1, "k2_fp32": k2,
+                            "k2_bf16": k2_16,
+                            "stages_s": dict(diar.last_stage_times)}}
+        log(f"[bf16 embed {model_id}] diarization of the 120 s conversation: "
+            f"first call {walls[0]:.3f} s, warm {walls[-1]:.3f} s, RTF "
+            f"{rtf:.5f} (fp32 {rtf32:.5f}); launches K1 {k1} K2 fp32 {k2} "
+            f"bf16 {k2_16}")
+        for L in BF16_EMBED_LENGTHS:
+            batch = _windows(wav, L, L)
+            e16, k1, k2, k2_16 = _counted_result3(lambda: embed16(batch))
+            if not (k1 == 1 and k2 == 0 and k2_16 == k2_per_call):
+                raise AssertionError(f"{model_id} bf16 [{BATCH}, {L}]: "
+                                     f"launches K1 {k1} K2 fp32 {k2} bf16 "
+                                     f"{k2_16}")
+            k1_total, k2_bf16_total = k1_total + k1, k2_bf16_total + k2_16
+            with torch.inference_mode():
+                e32 = embed32(batch)
+                ms16 = cuda_ms(lambda: embed16(batch), warmup=1, iters=1,
+                               runs=3)
+                ms32 = cuda_ms(lambda: embed32(batch), warmup=1, iters=1,
+                               runs=3)
+            cos = float(torch.nn.functional.cosine_similarity(
+                e16, e32, dim=1).min())
+            run[L] = {"ms": ms16, "fp32_ms": ms32, "min_cosine_vs_fp32": cos,
+                      "k1": k1, "k2_fp32": k2, "k2_bf16": k2_16}
+            log(f"[bf16 embed {model_id}] [{BATCH}, {L}] batch: bf16 "
+                f"{ms16:.3f} ms, fp32 {ms32:.3f} ms ({ms32 / ms16:.2f}x); min "
+                f"cosine bf16 vs fp32 {cos:.6f} (>= {BF16_EMBED_COS}); "
+                f"launches K1 {k1} K2 fp32 {k2} bf16 {k2_16}")
+            if not bool(torch.isfinite(e16).all()) or cos < BF16_EMBED_COS:
+                raise AssertionError(f"{model_id} bf16 embeddings at [{BATCH}, "
+                                     f"{L}]: min cosine {cos} against fp32")
+            del batch, e16, e32
+        del embed16, embed32, diar
+        torch.cuda.empty_cache()
+    return {"k1": k1_total, "k2": 0, "k2_bf16": k2_bf16_total, "runs": out}
+
+
+def phase_int8(models: str, sv: dict) -> dict:
+    """eval/quant.py at registry width: scales calibrated on two [64,
+    160000] batches of the SV utterances, then ``quantized_apply_fn`` (bf16
+    around the int8 products) on a third against the fp32 embed call; the
+    main path is that call (K1 once, no K2 of either dtype)."""
+    import torch
+
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.eval.embedding import (
+        build_embedding_fn, build_feature_fn)
+    from speaker3d_tpu_torch.eval.quant import (
+        calibrate_act_scales, quantized_apply_fn)
+
+    wav = np.concatenate([w for w in sv["wavs"].values()
+                          if len(w) >= SV_CHUNK])
+    features = build_feature_fn(device="cuda")
+    cal = [features(_windows(wav, SV_CHUNK, seed)) for seed in (21, 22)]
+    batch = _windows(wav, SV_CHUNK, 23)
+    out, k1_total = {}, 0
+    for model_id, k2_fp32_per_call in INT8_MODELS:
+        model = load_pretrained(model_id, models).cuda()
+        scales = {}
+        for feats in cal:
+            for key, v in calibrate_act_scales(model, feats).items():
+                scales[key] = max(scales.get(key, 0.0), v)
+        apply = quantized_apply_fn(model, scales)
+        int8 = lambda b: apply(features(b))
+        q, k1, k2, k2_16 = _counted_result3(lambda: int8(batch))
+        if not (k1 == 1 and k2 == 0 and k2_16 == 0):
+            raise AssertionError(f"{model_id} int8: launches K1 {k1} K2 fp32 "
+                                 f"{k2} bf16 {k2_16}; want K1 1 and no K2")
+        k1_total += k1
+        embed32 = build_embedding_fn(model, device="cuda", precision="high")
+        e32, _, k2_32, _ = _counted_result3(lambda: embed32(batch))
+        if k2_32 != k2_fp32_per_call:
+            raise AssertionError(f"{model_id}: the fp32 call launched K2 "
+                                 f"{k2_32} times, not {k2_fp32_per_call}")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: int8(batch), warmup=1, iters=1, runs=3)
+            ms32 = cuda_ms(lambda: embed32(batch), warmup=1, iters=1, runs=3)
+        cos = float(torch.nn.functional.cosine_similarity(
+            q.float(), e32, dim=1).min())
+        n_quant = sum("forward" in vars(m) for m in apply.model.modules())
+        out[model_id] = {"ms": ms, "fp32_ms": ms32, "min_cosine_vs_fp32": cos,
+                         "quantized_modules": n_quant, "scales": len(scales),
+                         "k1": k1, "k2_fp32": k2, "k2_bf16": k2_16}
+        log(f"[int8 {model_id}] {n_quant} of {len(scales)} calibrated modules "
+            f"in int8; [{BATCH}, {SV_CHUNK}] batch {ms:.3f} ms (fp32 embed "
+            f"call {ms32:.3f} ms); min cosine int8 vs fp32 {cos:.6f} (>= "
+            f"{INT8_COS}); launches K1 {k1} K2 fp32 {k2} bf16 {k2_16}")
+        if not bool(torch.isfinite(q).all()) or cos < INT8_COS:
+            raise AssertionError(f"{model_id} int8 embeddings: min cosine "
+                                 f"{cos} against fp32")
+        del model, apply, embed32, q, e32
+        torch.cuda.empty_cache()
+    return {"k1": k1_total, "k2": 0, "k2_bf16": 0, "runs": out}
 
 
 def phase_nnchain() -> None:
@@ -2107,7 +2410,8 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
 BF16_CONFIGS = (("eres2netv2_w24s4ep4",
                  os.path.join("configs", "eres2netv2_w24s4ep4.yaml")),
                 ("campplus", os.path.join("configs", "campplus.yaml")))
-BF16_EPOCHS = 4                   # the cut: 4 epochs of 4 steps (the config: 70)
+# the cut: 2 epochs of 4 steps (the config: 70)
+BF16_EPOCHS = 2
 # w24s4ep4's fp32 comparison run: one epoch of the corpus' first
 # BF16_FP32_STEPS x 256 utterances (every speaker, 12 each; 4 steps before
 # PR 17): the median of three step intervals is a warm one (of two, the
@@ -2252,7 +2556,7 @@ def phase_train_bf16(corpus: tuple, smi: str) -> dict:
 # encoder_ckpt null: the seeded encoder), PARA_EPOCHS epochs of the
 # trainer's corpus; then the card against the CPU and the remat checks
 PARA_CONFIG = os.path.join("configs", "eres2net_para.yaml")
-PARA_EPOCHS = 2                   # the cut (the config: 70)
+PARA_EPOCHS = 1                   # the cut (the config: 70)
 PARA_BATCH = 256                  # the config's; never cut
 PARA_CHECK_BATCH = 8              # the card-against-CPU frontend and step
 # the frozen frontend's output on the card (K1, SAN-M in fp32 with TF32
@@ -4913,7 +5217,7 @@ def phase_video(work: str, models: str, smi: str) -> dict:
 ASD_CLIPS = {"train": 60, "val": 12}
 ASD_CLIP_FRAMES = (25, 250)
 ASD_SEED = 700
-ASD_EPOCHS = 3                    # the cut (the CLI's default: 25)
+ASD_EPOCHS = 2                    # the cut (the CLI's default: 25)
 # one step at a real batch on the card against the port's CPU step from
 # the trained state, in fp32 on both: the loss, the BatchNorm statistics,
 # the parameters (the held-apart entries aside) and the held-apart
@@ -5429,6 +5733,8 @@ def _main(device, timed, phase_s, t_script) -> int:
         diar_cluster = timed("diar_cluster", phase_diar_cluster, work, models,
                              smi)
         analysis = timed("analysis", phase_analysis, work, models, sv)
+        bf16 = timed("bf16_embed", phase_bf16_embed, models, pipe)
+        int8 = timed("int8", phase_int8, models, sv)
         train = timed("train", phase_train, work, sv, smi)
         train16 = timed("train_bf16", phase_train_bf16, train["corpus"], smi)
         para = timed("para", phase_para, train["corpus"], smi)
@@ -5445,6 +5751,7 @@ def _main(device, timed, phase_s, t_script) -> int:
     dnn_front_k1_share(k1, dnn)
     k2 = timed("k2", phase_k2, lengths, pipe["main_len"],
                asr["predict_lengths"])
+    k2b = timed("k2_bf16", phase_k2_bf16, lengths, pipe["main_len"], k2)
     k3 = timed("k3", phase_k3)
     timed("nnchain", phase_nnchain)
     cluster = timed("cluster", phase_cluster, device["smi"])
@@ -5472,8 +5779,17 @@ def _main(device, timed, phase_s, t_script) -> int:
                                  "boundaries": ssl[f"boundaries_{key}"],
                                  "video": video[key],
                                  "asd_train": asd[key],
-                                 "drivers": drivers[key]}
+                                 "drivers": drivers[key],
+                                 "bf16_embed": bf16[key], "int8": int8[key]}
         k["launches"] = sum(k["launches_by_path"].values())
+    # K2's bf16 variant runs on the bf16 embed path only (every other path
+    # above checked that it launched none)
+    k2b["launches_by_path"] = {"bf16_embed": bf16["k2_bf16"],
+                               "int8": int8["k2_bf16"]}
+    k2b["launches"] = sum(k2b["launches_by_path"].values())
+    if not k2b["launches"]:
+        raise AssertionError("K2's bf16 variant was never launched on the "
+                             "bf16 embed path")
     log(json.dumps({"card": device["smi"], "pipeline": pipe["stage"],
                     "sv": {"runs": sv["runs"], **sv["stats"]},
                     "backbones": backbones["runs"], "server": server["stats"],
@@ -5488,10 +5804,13 @@ def _main(device, timed, phase_s, t_script) -> int:
                                   if k not in ("k1", "k2", "train_k1")},
                     "asr": asr["stats"], "ssl": ssl["stats"],
                     "video": video["stats"], "asd": asd["stats"],
-                    "drivers": drivers["stats"], "phase_s": phase_s,
+                    "drivers": drivers["stats"],
+                    "bf16_embed": {m: {str(k): v for k, v in r.items()}
+                                   for m, r in bf16["runs"].items()},
+                    "int8": int8["runs"], "phase_s": phase_s,
                     "script_s": time.perf_counter() - t_script}))
     log(f"[script] {time.perf_counter() - t_script:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k2b, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": device["platform"], "kind": device["kind"],
         "count": device["count"]}}), flush=True)

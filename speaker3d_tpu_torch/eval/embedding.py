@@ -3,7 +3,8 @@
 The counterpart of ``speaker3d_tpu/eval/embedding.py``. The returned
 callable is the device hot path of diarization: PCM16 decode, the fbank
 kernel, mean-norm over time, the backbone, float32 out. ``build_feature_fn``
-is the fbank alone.
+is the fbank alone. ``dtype=torch.bfloat16`` runs the backbone in bf16 (the
+Res2 blocks through the Res2 kernel's bf16 variant); the fbank stays fp32.
 """
 
 from __future__ import annotations
@@ -47,18 +48,26 @@ def build_embedding_fn(model: torch.nn.Module,
                        state: Optional[Mapping[str, torch.Tensor]] = None, *,
                        device=DEFAULT_DEVICE, precision: Optional[str] = "float32",
                        mean_norm: bool = True, sample_rate: int = 16000,
-                       num_mel_bins: int = 80) -> Callable:
+                       num_mel_bins: int = 80,
+                       dtype: Optional[torch.dtype] = None) -> Callable:
     """Return ``embed(wavs) -> [B, D] float32 tensor on ``device````.
 
     ``state``: a state_dict loaded into ``model`` with ``strict=True`` (None
     keeps the model's weights). ``wavs``: [B, L] float32, or int16 PCM
     decoded as k/32768; a tensor or array, moved to ``device`` if needed.
     ``precision``: "high"/"float32"/"highest" run fp32 (TF32 off), None
-    allows TF32."""
+    allows TF32. ``dtype``: the backbone's compute dtype (e.g.
+    ``torch.bfloat16``); the fbank runs in float32 and its features are
+    cast to it. A torch module takes no bf16 input beside fp32 weights, so
+    ``dtype`` also casts the model's floating parameters and buffers in
+    place, as the JAX package's callers cast the variables before they
+    pass a bf16 ``dtype`` (``bench.py``, ``tools/bench_diarization.py``)."""
     dev = resolve_device(device)
     if state is not None:
         model.load_state_dict(state, strict=True)
     model.to(dev).eval()
+    if dtype is not None:
+        model.to(dtype)
     fbank = KaldiFbank(FbankConfig(sample_rate=sample_rate,
                                    num_mel_bins=num_mel_bins),
                        mean_norm=mean_norm, device=dev)
@@ -73,6 +82,8 @@ def build_embedding_fn(model: torch.nn.Module,
                 # float conversion of the same PCM16 samples
                 wavs = wavs.to(torch.float32) * (1.0 / 32768)
             feats = fbank(wavs.to(torch.float32))
+            if dtype is not None:
+                feats = feats.to(dtype)
             return model(feats).to(torch.float32)
 
     return embed

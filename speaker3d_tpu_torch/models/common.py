@@ -15,6 +15,14 @@ the parameters) the training-mode forward is Flax's under
 ``bn_compute_dtype(bfloat16)``: batch statistics reduced in fp32, the
 normalisation in fp32 with the bf16-rounded scale and bias, the output in
 bf16, the running statistics fp32.
+
+In eval mode with a bf16 input, bf16 running statistics and bf16 parameters
+(a model cast to bf16, as ``eval/embedding.py::build_embedding_fn`` and
+``eval/quant.py`` cast it), the forward is Flax's ``BatchNorm`` on
+bf16-cast variables, one bf16 op at a time: ``y = x - mean``, ``mul =
+rsqrt(var + eps)`` (eps rounded to bf16, as Flax's weakly typed epsilon),
+``mul = mul * scale``, ``y = y * mul``, ``y = y + bias``, each rounded to
+bf16, where torch's own kernel would normalise in fp32 and round once.
 """
 
 from __future__ import annotations
@@ -73,6 +81,8 @@ class _FlaxStatsBatchNorm:
     """Training-mode forward with Flax's running-statistics update."""
 
     def forward(self, x):
+        if not self.training and _bf16_eval(self, x):
+            return self._flax_bf16_eval(x)
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
@@ -100,6 +110,29 @@ class _FlaxStatsBatchNorm:
                 var, alpha=(1.0 - keep) * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _flax_bf16_eval(self, x):
+        """Flax's eval-mode normalisation with bf16 variables, op by op in
+        bf16 (see the module docstring)."""
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        eps = torch.tensor(self.eps, dtype=x.dtype).item()
+        # the root in fp32, rounded once: torch's CPU rsqrt on bf16 is off
+        # by an ulp on a quarter of the values
+        mul = torch.rsqrt((self.running_var + eps).float()).to(x.dtype)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - self.running_mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        return y
+
+
+def _bf16_eval(bn, x) -> bool:
+    """Whether ``bn`` (in eval mode) holds bf16 running statistics and
+    parameters and sees a bf16 input."""
+    return (x.dtype == torch.bfloat16 and bn.running_mean is not None
+            and bn.running_mean.dtype == torch.bfloat16
+            and (bn.weight is None or bn.weight.dtype == torch.bfloat16))
 
 
 class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):

@@ -8,8 +8,11 @@ AFF fusion in stages 3-4 plus one layer3->layer4 fusion, temporal pooling
 with ``strict=True``.
 
 In eval mode every scale-2 block without AFF (layer1-2 of the 17.8M model)
-runs through ``ops/kernels/res2_block_kernel.py`` with its BatchNorms folded
-once per loaded weights; training mode keeps the unfused path. ``remat``
+runs through ``ops/kernels/res2_block_kernel.py`` in its input's dtype
+(float32, or bfloat16 for a bf16 model on a bf16 input) with its BatchNorms
+folded once per loaded weights, device and dtype; training mode keeps the
+unfused path, and so does a block whose ``use_kernel`` is False (the int8
+path of ``eval/quant.py``, whose convs must run). ``remat``
 (training only) recomputes each residual block in the backward pass
 (``models/common.py::remat_blocks``), as the JAX module's ``nn.remat`` per
 block; the recomputation leaves the BatchNorm running statistics alone, so
@@ -80,34 +83,41 @@ class BasicBlockERes2NetV2(nn.Module):
                 nn.Conv2d(in_planes, expansion * planes, 1, stride=stride,
                           bias=False),
                 batch_norm2d(expansion * planes))
-        self._fold = None
+        self.use_kernel = True
+        self._folds = {}
 
     @property
     def fusable(self) -> bool:
         return self.scale == 2 and not self.use_aff
 
-    def folded(self):
-        """The BN-folded weights, folded once per loaded weights and device
-        (``load_state_dict`` and ``train()`` drop them)."""
-        dev = self.conv1.weight.device
-        if self._fold is None or self._fold.b1.device != dev:
+    def folded(self, dtype: torch.dtype = torch.float32):
+        """The BN-folded weights in ``dtype``, folded once per loaded
+        weights, device and dtype (``load_state_dict``, ``train()`` and a
+        move or cast of the module drop them)."""
+        key = (self.conv1.weight.device, dtype)
+        if key not in self._folds:
             with torch.no_grad():
-                self._fold = fold_res2_block(
+                self._folds[key] = fold_res2_block(
                     {**dict(self.named_parameters()),
-                     **dict(self.named_buffers())}, eps=self.bn1.eps)
-        return self._fold
+                     **dict(self.named_buffers())}, eps=self.bn1.eps,
+                    dtype=dtype)
+        return self._folds[key]
 
     def train(self, mode: bool = True):
-        self._fold = None
+        self._folds = {}
         return super().train(mode)
 
+    def _apply(self, *args, **kwargs):
+        self._folds = {}
+        return super()._apply(*args, **kwargs)
+
     def _load_from_state_dict(self, *args, **kwargs):
-        self._fold = None
+        self._folds = {}
         return super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, x):
-        if self.fusable and not self.training:
-            return res2_block(x, self.folded(), self.stride)
+        if self.fusable and self.use_kernel and not self.training:
+            return res2_block(x, self.folded(x.dtype), self.stride)
         out = relu20(self.bn1(self.conv1(x)))
         splits = torch.split(out, self.width, dim=1)
         pieces = []

@@ -1,15 +1,19 @@
-"""Audio file IO: PCM WAV decode/encode, resampling, ``load_audio``, and
-Kaldi-style ``wav.scp`` lists.
+"""Audio file IO: PCM WAV decode/encode, resampling, ``load_audio``,
+Kaldi-style ``wav.scp`` / ``utt2spk`` lists, and YAML / JSON / line-list
+helpers.
 
-The port's own copy of the audio half of ``speaker3d_tpu/utils/fileio.py``
-and of its ``load_wav_scp`` and ``load_data_csv``: stdlib ``wave`` + numpy
-for PCM WAV, polyphase resampling with scipy.
+The port's own copy of ``speaker3d_tpu/utils/fileio.py``'s audio half and
+of its list and file helpers (``load_yaml``, ``load_data_csv``,
+``load_data_list``, ``load_wav_scp``, ``load_utt2spk``, ``write_wav_scp``,
+``load_json_file``, ``write_json_file``): stdlib ``wave`` + numpy for PCM
+WAV, polyphase resampling with scipy.
 """
 
 from __future__ import annotations
 
 import csv
 import io
+import json
 import os
 import wave
 from math import gcd
@@ -147,3 +151,41 @@ def load_data_csv(fpath):
                 raise ValueError(f"Duplicate id: {data_id}")
             result[data_id] = row
     return result
+
+
+def load_yaml(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def load_data_list(fpath):
+    """{line index: stripped line}."""
+    with open(fpath) as f:
+        return {idx: line.strip() for idx, line in enumerate(f)}
+
+
+def load_utt2spk(fpath):
+    """``utt spk`` per line -> {utt: spk}."""
+    return load_wav_scp(fpath)
+
+
+def write_wav_scp(fpath, wav_scp):
+    """{key: value} -> ``key value`` per line."""
+    with open(fpath, "w") as f:
+        for key, value in wav_scp.items():
+            f.write(f"{key} {value}\n")
+
+
+def load_json_file(path):
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def write_json_file(path, data):
+    """``data`` as indented UTF-8 JSON; ``path`` must end in ``.json``."""
+    if not str(path).lower().endswith(".json"):
+        raise ValueError(f"not a .json path: {path}")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, indent=2, ensure_ascii=False)

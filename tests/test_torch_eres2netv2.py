@@ -132,12 +132,12 @@ def test_fold_cache_follows_loaded_weights():
     sd = {k: v * 1.5 if k.endswith("conv1.weight") else v
           for k, v in model.state_dict().items()}
     model.load_state_dict(sd)
-    assert blk._fold is None
+    assert not blk._folds
     with torch.inference_mode():
         second = model(feats)
     assert not torch.equal(first, second)
     model.train()
-    assert blk._fold is None
+    assert not blk._folds
     model.eval()
     with torch.inference_mode():
         assert torch.equal(model(feats), second)

@@ -221,6 +221,96 @@ def test_res2_kernel_at_eres2net_widths(cuda, geom, frames):
         assert float((got - want).abs().max()) <= 1e-4, (cin, planes, stride)
 
 
+# bf16 K2 against its plain bf16 version: both round to bf16 at the same
+# points and sum in fp32 in their own orders, so an element near a rounding
+# boundary may round the other way: at most 1% of the elements differ, none
+# by more than two bf16 ulps (2^-7) of the output's scale
+BF16_DIFF_SHARE = 0.01
+BF16_MAX_ULPS = 2.0
+
+
+def assert_bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    share = float((got != want).float().mean())
+    ulps = float((got - want).abs().max()) / (float(want.abs().max()) * 2.0 ** -8)
+    assert share <= BF16_DIFF_SHARE and ulps <= BF16_MAX_ULPS, (share, ulps)
+
+
+# (Cin, planes, stride, F, T, base_width): the 17.8M model's layer1 and
+# layer2 entry at 3 s chunks, an identity-shortcut block with ragged tiles,
+# ERes2Net large's layer2 (w = 64, Cout = 256)
+@pytest.mark.parametrize("cin,planes,stride,f,t,bw", [
+    (64, 64, 1, 80, 298, 26), (128, 128, 2, 80, 298, 26),
+    (256, 128, 1, 40, 37, 26), (256, 128, 1, 40, 149, 32)])
+def test_res2_kernel_bf16_matches_plain(cuda, cin, planes, stride, f, t, bw):
+    blk = _randomize(BasicBlockERes2NetV2(cin, planes, stride=stride,
+                                          base_width=bw), cin + t)
+    blk.to(cuda)
+    folded = blk.folded(torch.bfloat16)
+    x = torch.rand((3, cin, f, t), generator=torch.Generator().manual_seed(t)
+                   ).to(cuda).bfloat16()
+    launches = (rk.res2_block.launches, rk.res2_block.launches_bf16)
+    with matmul_precision("float32"):
+        got = rk.res2_block(x, folded, stride)
+        want = rk.res2_block_plain(x, folded, stride)
+    torch.cuda.synchronize()
+    assert (rk.res2_block.launches, rk.res2_block.launches_bf16) == (
+        launches[0], launches[1] + 1)
+    assert_bf16_close(got, want)
+
+
+def test_res2_kernel_refuses_other_dtypes_on_the_card(cuda):
+    blk = _randomize(BasicBlockERes2NetV2(64, 64), 0).to(cuda)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            rk.res2_block(torch.rand((1, 64, 8, 8), device=cuda, dtype=dtype),
+                          blk.folded(torch.bfloat16))
+
+
+def test_bf16_embed_call_on_the_card_matches_the_cpu(cuda):
+    """build_embedding_fn(dtype=bfloat16): K1 in fp32, K2's bf16 variant
+    (never the fp32 one), the embedding against the CPU's bf16 path."""
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 0)
+    wavs = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (4, 48000)) * 0.1).astype(np.float32))
+    cpu = build_embedding_fn(model, device="cpu", dtype=torch.bfloat16)(wavs)
+    embed = build_embedding_fn(model, device=cuda, dtype=torch.bfloat16)
+    k = (fk.fbank_features.launches, rk.res2_block.launches,
+         rk.res2_block.launches_bf16)
+    out = embed(wavs)
+    torch.cuda.synchronize()
+    assert (fk.fbank_features.launches, rk.res2_block.launches,
+            rk.res2_block.launches_bf16) == (k[0] + 1, k[1], k[2] + 4)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    cos = torch.nn.functional.cosine_similarity(out.cpu(), cpu, dim=1)
+    assert float(cos.min()) >= 0.999, cos
+
+
+def test_int8_apply_on_the_card_matches_the_cpu(cuda):
+    """eval/quant.py: scales calibrated on the card equal the CPU's; the int8
+    apply launches no K2 and agrees with the CPU's int8 apply."""
+    from speaker3d_tpu_torch.eval.quant import (
+        calibrate_act_scales, quantized_apply_fn)
+
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 3)
+    feats = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 150, 80)).astype(np.float32))
+    cpu_scales = calibrate_act_scales(model, feats)
+    scales = calibrate_act_scales(model.to(cuda), feats.to(cuda))
+    assert scales.keys() == cpu_scales.keys()
+    for key, v in scales.items():
+        assert abs(v - cpu_scales[key]) <= 1e-3 * cpu_scales[key], key
+    k2 = (rk.res2_block.launches, rk.res2_block.launches_bf16)
+    got = quantized_apply_fn(model, cpu_scales)(feats.to(cuda))
+    torch.cuda.synchronize()
+    assert (rk.res2_block.launches, rk.res2_block.launches_bf16) == k2
+    want = quantized_apply_fn(model.cpu(), cpu_scales)(feats)
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(),
+                                                want.float(), dim=1)
+    assert float(cos.min()) >= 0.999, cos
+
+
 def test_eres2net_large_embed_batch_on_the_card(cuda):
     from speaker3d_tpu_torch.models.eres2net import eres2net_large
 
