@@ -5,8 +5,9 @@ speaker-verification, serving, analysis and training paths (the SV trainer
 with remat on every kind of backbone, the ASR-encoder-fused SV, VAD,
 segmenter, CTC ASR, self-supervised RDINO/SDPN, face detector and TalkNet
 ASD trainers), speaker-attributed transcription, label prediction,
-sequential-speaker boundaries, every registry backbone and the recipe
-backbones, on one GPU.
+sequential-speaker boundaries, semantic speaker analysis (BERT dialogue and
+speaker-turn detection), every registry backbone and the recipe backbones,
+on one GPU.
 
     python3 chip_smoke.py
 
@@ -135,8 +136,8 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     ``configs/eres2netv2_w24s4ep4.yaml`` (the diarization CLI's default
     model, 53.5M, with its ``remat: true``) and ``configs/campplus.yaml``,
     both as shipped (``compute_dtype: bfloat16``, batch 256, full width)
-    but for the paths and the epochs (cut to 2 epochs of item 14's corpus,
-    8 steps; printed), then w24s4ep4 once more with
+    but for the paths and the epochs (cut to 1 epoch of item 14's corpus,
+    4 steps; printed), then w24s4ep4 once more with
     ``--compute_dtype=float32`` (one epoch of the corpus' first 768
     utterances, 3 steps): per run the median step time
     of the last epoch and the first step, samples/s, the data-wait share,
@@ -188,8 +189,8 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     each in a process of its own and all side by side, the random-init
     teacher, then 20 epochs; the medians over the seeds:
     closed-set EER >= 0.28 before, an improvement >= 0.04, <= 0.34 after;
-    the open set printed); ``infer_sv_ssl`` (the
-    printed cosine against the host's float64 cosine of its saved
+    the open set, never gated, not embedded since PR 19); ``infer_sv_ssl``
+    (the printed cosine against the host's float64 cosine of its saved
     embeddings, 1e-5) and ``extract_ssl`` on the card against ``--device
     cpu`` (cosine >= 0.9999) on the trained teacher; ``detect_boundaries``
     (cosine and gmm) on seeded sequential embeddings (every boundary
@@ -213,11 +214,12 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     384 at 25 fps: each speaker's face, ``render_face`` at one place and
     brightness before its own backdrop, visible during its turns; the
     conversation's audio) with ``--face_boxes_json`` (the truth) and the
-    energy scorer, with the trained detector and ``--asd_exp_dir``, the
-    same at ``--fps 12.5``, and with the 17.8M model: each RTTM with the
-    three speakers and every turn start within 0.2 s of the truth, the
-    first three byte-equal to the same run with ``--device cpu`` and their
-    boxes equal to the CPU's (the 17.8M run has no CPU rerun: a cut),
+    energy scorer, with the trained detector and ``--asd_exp_dir`` at
+    ``--fps 12.5``, and the same at 25 fps with the 17.8M model: each RTTM
+    with the three speakers and every turn start within 0.2 s of the truth,
+    the first two byte-equal to the same run with ``--device cpu`` and
+    their boxes equal to the CPU's (the 17.8M run has no CPU rerun, and the
+    default model's detector run at 25 fps is gone: cuts),
     launches (K1 > 0; K2 = 7 x K1 with the 17.8M model), the wall time of
     each stage; cv2's version, and when it imports, the CLI's ``main`` on
     an MJPG .avi of the frames, its RTTM equal to the boxes run's;
@@ -291,7 +293,29 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     against its plain bf16 version (at most 1% of the elements differ,
     none by more than two bf16 ulps of the output's scale), its ms beside
     the plain bf16 version's and item 8's fp32 kernel's at the same shape,
-    the bound at the bf16 tensor-core rate.
+    the bound at the bf16 tensor-core rate;
+26. (run after item 21) semantic speaker analysis at bert-base-chinese's
+    published widths (vocab 21,128, 12 layers of 768, 12 heads,
+    intermediate 3,072; google-bert/bert-base-chinese's config.json): a
+    pretraining-style directory written here (``config.json``, a generated
+    ``vocab.txt`` of the specials, 。？！， and CJK characters from U+4E00,
+    seeded ``bert.*`` and ``cls.*`` in ``model.safetensors``, no
+    classifier); 48 seeded TextGrids of 2-4 speakers (each writing from a
+    character set of its own) through ``data.semantic_prep textgrid`` and
+    ``json`` into train (40 conversations) and eval (8) JSONL for both
+    tasks; the card's ``transformers`` tokenizer giving ``[CLS]``, one id
+    per character and ``[SEP]`` for every train window; ``cli.semantic
+    dialogue`` and ``turn`` with ``--pretrained`` at ``--max_seq_length
+    128 --batch_size 32 --epochs 2``: ms a step (median of the last epoch,
+    CUDA events), samples/s, peak memory, the losses and eval metrics,
+    launches (K1 and K2 never); at full width and B = 4 from the same
+    weights, the card against the CPU (TF32 off): logits within 1e-4 of
+    their scale, one AdamW step's loss (rtol 1e-5) and gradients (a median
+    1e-4 and a worst leaf 1e-2 of their scale; the keys' biases, zero but
+    for rounding, below 1e-5 of the largest gradient); then
+    ``tests/test_semantic_bert.py``'s learning gate on the card (a tiny
+    BERT, 25 steps at lr 5e-3, both tasks: the last loss under 0.7 of the
+    first, the last batch's accuracy above 0.8).
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
@@ -300,7 +324,7 @@ diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
 front-end, VAD/segmenter training, transcription, CTC training,
 ``predict_label``, SSL (none), boundaries, video, ASD training (none),
-driver, ASR-encoder-fused training and remat-check runs
+driver, ASR-encoder-fused training, remat-check and semantic (none) runs
 (``launches_by_path`` apart). Each phase's wall time is printed
 as ``[phase] <name> <s>``.
 
@@ -1045,10 +1069,12 @@ def phase_pipeline(work: str) -> dict:
             with torch.inference_mode(), matmul_precision("high"):
                 got = embed(batch)
                 want = _plain_embed(model, fb, batch)
-                embed_ms = cuda_ms(lambda: embed(batch), warmup=2, iters=2,
+                # one call (46-1,070 ms) between a pair of events per run;
+                # got and want warmed both paths up
+                embed_ms = cuda_ms(lambda: embed(batch), warmup=1, iters=1,
                                    runs=3)
                 plain_ms = cuda_ms(lambda: _plain_embed(model, fb, batch),
-                                   warmup=2, iters=2, runs=3)
+                                   warmup=1, iters=1, runs=3)
                 # the plain path runs every product as a torch op, so it
                 # counts them all
                 flops = _flops(lambda: _plain_embed(model, fb, batch))
@@ -1320,10 +1346,10 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
     with torch.inference_mode(), matmul_precision("highest"):
         got, want = embed(batch), plain(batch)
         cos = float(torch.nn.functional.cosine_similarity(got, want, dim=1).min())
-        stats["embed_batch_ms"] = cuda_ms(lambda: embed(batch), warmup=2,
-                                          iters=2, runs=3)
-        stats["embed_batch_plain_ms"] = cuda_ms(lambda: plain(batch), warmup=2,
-                                                iters=2, runs=3)
+        stats["embed_batch_ms"] = cuda_ms(lambda: embed(batch), warmup=1,
+                                          iters=1, runs=3)
+        stats["embed_batch_plain_ms"] = cuda_ms(lambda: plain(batch), warmup=1,
+                                                iters=1, runs=3)
     stats["embed_batch_min_cosine"] = cos
     if not bool(torch.isfinite(got).all()) or cos < 0.9999:
         raise AssertionError(f"sv [{BATCH}, {SV_CHUNK}] batch kernel vs "
@@ -1415,8 +1441,8 @@ def phase_backbones(work: str, models: str, sv: dict) -> dict:
             e_k, e_p = embed(batch), plain(batch)
             cos = float(torch.nn.functional.cosine_similarity(
                 e_k, e_p, dim=1).min())
-            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=2, runs=3)
-            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=2, runs=3)
+            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=1, runs=3)
+            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=1, runs=3)
         if not bool(torch.isfinite(e_k).all()) or cos < 0.9999:
             raise AssertionError(f"{model_id}: [{BATCH}, {SV_CHUNK}] batch "
                                  f"kernel vs plain: min cosine {cos}")
@@ -1451,8 +1477,8 @@ def phase_backbones(work: str, models: str, sv: dict) -> dict:
             e_k, e_p = embed(batch), plain(batch)
             cos = float(torch.nn.functional.cosine_similarity(
                 e_k, e_p, dim=1).min())
-            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=2, runs=3)
-            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=2, runs=3)
+            ms = cuda_ms(lambda: embed(batch), warmup=1, iters=1, runs=3)
+            plain_ms = cuda_ms(lambda: plain(batch), warmup=1, iters=1, runs=3)
             gflop = _flops(lambda: plain(batch)) / 1e9
         if not bool(torch.isfinite(e_k).all()) or cos < 0.9999:
             raise AssertionError(f"{name}: [{BATCH}, {SV_CHUNK}] batch kernel "
@@ -2410,8 +2436,9 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
 BF16_CONFIGS = (("eres2netv2_w24s4ep4",
                  os.path.join("configs", "eres2netv2_w24s4ep4.yaml")),
                 ("campplus", os.path.join("configs", "campplus.yaml")))
-# the cut: 2 epochs of 4 steps (the config: 70)
-BF16_EPOCHS = 2
+# the cut: 1 epoch of 4 steps (the config: 70; 2 before PR 19): the median
+# of its four step intervals is a warm one
+BF16_EPOCHS = 1
 # w24s4ep4's fp32 comparison run: one epoch of the corpus' first
 # BF16_FP32_STEPS x 256 utterances (every speaker, 12 each; 4 steps before
 # PR 17): the median of three step intervals is a warm one (of two, the
@@ -2881,8 +2908,8 @@ DNN_CONFIGS = {"vad": os.path.join("configs", "fsmn_vad.yaml"),
                "seg": os.path.join("configs", "fsmn_seg.yaml")}
 DNN_CLIS = {"vad": "speaker3d_tpu_torch.cli.train_vad",
             "seg": "speaker3d_tpu_torch.cli.train_segmentation"}
-DNN_CUTS = {"vad": {"dataset_size": 6400, "num_epoch": 3},
-            "seg": {"dataset_size": 3200, "num_epoch": 3}}
+DNN_CUTS = {"vad": {"dataset_size": 6400, "num_epoch": 2},
+            "seg": {"dataset_size": 3200, "num_epoch": 2}}
 DNN_UTTS = 8                      # utterances per voice
 # K1 against the plain fbank, one Adam step: parameters to 1e-3 (the first
 # step moves each by about lr = min_lr = 1e-5), loss to rtol 1e-3
@@ -4196,11 +4223,12 @@ def _ssl_step_checks(scps: dict, noise: str, rir: str) -> dict:
     return out
 
 
-def _ssl_gate_seed(folder: str, seed: int, scp: str, closed, open_) -> dict:
+def _ssl_gate_seed(folder: str, seed: int, scp: str, closed) -> dict:
     """One seed of the gate: the random-init teacher (epochs: 0) and the
     teacher after SSL_GATE_EPOCHS epochs of SDPN through train_ssl, each
-    embedded by extract_ssl on the closed and open sets: their EERs, the
-    launches of every call, the walls."""
+    embedded by extract_ssl on the closed set: their EERs, the launches of
+    every call, the walls. (The open set, which the gate never read, is not
+    embedded since PR 19: a cut.)"""
     import contextlib
     import io
 
@@ -4222,8 +4250,7 @@ def _ssl_gate_seed(folder: str, seed: int, scp: str, closed, open_) -> dict:
             k.append(_counted(lambda: train_ssl.main(
                 ["--config", cfg, "--variant", "sdpn", "--seed",
                  str(seed)])))
-            for name, (eval_scp, utts) in (("closed", closed),
-                                           ("open", open_)):
+            for name, (eval_scp, utts) in (("closed", closed),):
                 emb_dir = os.path.join(exp, f"embs_{name}")
                 k.append(_counted(lambda: extract_ssl.main(
                     ["--exp_dir", exp, "--data", eval_scp, "--out_dir",
@@ -4254,13 +4281,13 @@ def _ssl_gate(folder: str) -> dict:
     import statistics
 
     t0 = time.perf_counter()
-    scp, closed, open_ = ssl_probe_corpus(folder)
+    scp, closed, _ = ssl_probe_corpus(folder)
     corpus_s = time.perf_counter() - t0
     procs = {}
     for seed in SSL_GATE_SEEDS:
         procs[seed] = subprocess.Popen(
             [sys.executable, "-c", _SSL_GATE_RUNNER, ROOT,
-             json.dumps([folder, seed, scp, closed, open_])], cwd=ROOT,
+             json.dumps([folder, seed, scp, closed])], cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         _CHILDREN.append(procs[seed])
@@ -4457,9 +4484,7 @@ def phase_ssl(work: str, models: str, smi: str) -> dict:
             f"config (lr 0.5, teacher momentum 0.7, 32 prototypes), "
             f"{SSL_GATE_EPOCHS} epochs on the card: closed-set EER "
             f"{e['init']['closed']:.4f} -> {e['trained']['closed']:.4f} "
-            f"(improvement {e['init']['closed'] - e['trained']['closed']:.4f})"
-            f"; open set {e['init']['open']:.4f} -> "
-            f"{e['trained']['open']:.4f} (unchecked)")
+            f"(improvement {e['init']['closed'] - e['trained']['closed']:.4f})")
     m = gate["median"]
     log(f"[ssl gate] medians over seeds {SSL_GATE_SEEDS}: closed EER "
         f"{m['init']:.4f} -> {m['trained']:.4f}, improvement "
@@ -5035,7 +5060,7 @@ def _video_cv2(folder, frames, wav_path, boxes_path, models, want_rttm):
 def phase_video(work: str, models: str, smi: str) -> dict:
     """Audio-visual diarization: the face detector's trainer on
     configs/face_det.yaml, TalkNet, the video CLI's body on a rendered 120 s
-    video four ways (each against ``--device cpu``), and cv2."""
+    video three ways (two against ``--device cpu``), and cv2."""
     import torch
 
     from speaker3d_tpu_torch.utils.fileio import write_wav
@@ -5059,8 +5084,9 @@ def phase_video(work: str, models: str, smi: str) -> dict:
 
     # the detector trains in a process of its own; the --device cpu reruns
     # run in a thread of this process beside everything else (their audio
-    # first, then each run once the detector and TalkNet experiments
-    # exist), on VIDEO_CPU_THREADS of torch's CPU threads
+    # first, then the boxes run, then the detector run once the detector
+    # and TalkNet experiments exist), on VIDEO_CPU_THREADS of torch's CPU
+    # threads
     import threading
 
     from speaker3d_tpu_torch.utils.threads import cpu_threads
@@ -5071,9 +5097,10 @@ def phase_video(work: str, models: str, smi: str) -> dict:
                  str(VIDEO_FACE_THRESHOLD), "--asd_exp_dir", asd_exp]
     # the last run has no --device cpu rerun (the CUT: its CPU audio
     # pipeline was 33 s of the reruns' thread, the phase's critical path);
-    # the other three hold the card's RTTM byte-equal to the CPU's
+    # the other two hold the card's RTTM byte-equal to the CPU's. The
+    # default model's detector run at 25 fps is cut: the 17.8M run is that
+    # run at 25 fps, and the fps 12.5 run is it with the default model
     plans = (("boxes", ["--face_boxes_json", boxes_path], 25.0),
-             ("detector_asd", det_flags, 25.0),
              ("detector_asd_fps12.5", det_flags + ["--fps", "12.5"], 12.5),
              ("detector_asd_17.8M", det_flags + ["--model_id", MODEL_17M],
               25.0))
@@ -5085,9 +5112,10 @@ def phase_video(work: str, models: str, smi: str) -> dict:
         try:
             with cpu_threads(VIDEO_CPU_AUDIO_THREADS):
                 cpu_audio_s[MODEL_W24] = _cpu_audio(models, MODEL_W24, wav)
-            ready.wait()
             with cpu_threads(VIDEO_CPU_THREADS):
                 for name, extra, fps in reruns:
+                    if name != "boxes":  # needs the trained experiments
+                        ready.wait()
                     cpu_runs[name] = _video_run(folder, name, extra, frames,
                                                 fps, wav, turns, boxes, "cpu")
         except BaseException as e:  # noqa: BLE001 - re-raised after the join
@@ -5695,6 +5723,446 @@ def phase_drivers(work: str, models: str, smi: str) -> dict:
     return {"k1": k1_all, "k2": k2_all, "stats": res}
 
 
+# the semantic phase: a pretraining-style directory at bert-base-chinese's
+# published widths (google-bert/bert-base-chinese config.json on the Hugging
+# Face hub), seeded random weights, a generated vocab.txt; nothing downloaded
+SEM_BERT_CONFIG = {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                   "vocab_size": 21128, "hidden_size": 768,
+                   "num_hidden_layers": 12, "num_attention_heads": 12,
+                   "intermediate_size": 3072, "max_position_embeddings": 512,
+                   "type_vocab_size": 2, "hidden_act": "gelu",
+                   "layer_norm_eps": 1e-12, "initializer_range": 0.02,
+                   "hidden_dropout_prob": 0.1,
+                   "attention_probs_dropout_prob": 0.1, "pad_token_id": 0,
+                   "position_embedding_type": "absolute"}
+SEM_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+SEM_PUNCT = ("。", "？", "！", "，")
+SEM_SEED = 800
+SEM_CONVERSATIONS = 48            # 2-4 of SEM_SPEAKERS each
+SEM_EVAL_CONVERSATIONS = 8        # held out for the eval JSONL
+SEM_SPEAKERS = 12                 # each writes from a character set of its own
+SEM_TURNS = 8                     # of 3-12 sentences: about half the
+                                  # 96-character windows hold one speaker
+SEM_ARGS = ["--max_seq_length", "128", "--batch_size", "32", "--epochs", "2"]
+SEM_CHECK_BATCH = 4               # the card-against-CPU step at full width
+SEM_LOGIT_TOL = 1e-4              # of the logits' scale, TF32 off
+# the gradients (first moments / (1 - b1) after one step): the median and
+# the worst leaf's error over its largest entry; the keys' biases, whose
+# gradient is zero but for rounding, against the largest gradient
+SEM_GRAD_TOL = {"median": 1e-4, "worst": 1e-2, "held": 1e-5}
+SEM_LOSS_REL = 1e-5
+# tests/test_semantic_bert.py's recipe: a tiny BERT, lr 5e-3, 25 steps of
+# 8 x 16 class-indicative tokens; the last loss under 0.7 of the first and
+# the last batch's accuracy above 0.8
+SEM_GATE_MODEL = {"vocab_size": 50, "hidden_size": 32,
+                  "num_hidden_layers": 2, "num_attention_heads": 2}
+SEM_GATE_STEPS = 25
+SEM_GATE = {"loss_ratio": 0.7, "accuracy": 0.8}
+_SEM_EPOCH_LINE = (r"^epoch (\d+): (\d+) steps of (\d+), step ([\d.]+) ms "
+                   r"\(median; the first ([\d.]+)\), ([\d.]+) samples/s, "
+                   r"data_wait_s ([\d.]+) of ([\d.]+) s, peak memory "
+                   r"([\d.]+) GiB$")
+
+
+def semantic_vocab() -> list:
+    """bert-base-chinese's vocabulary size from the specials, 。？！， and
+    the CJK Unified Ideographs from U+4E00, topped up with ``[unusedN]``."""
+    vocab = list(SEM_SPECIALS) + list(SEM_PUNCT) + [
+        chr(c) for c in range(0x4E00, 0xA000)]
+    n = SEM_BERT_CONFIG["vocab_size"] - len(vocab)
+    return vocab[:SEM_BERT_CONFIG["vocab_size"]] + [
+        f"[unused{i}]" for i in range(1, n + 1)]
+
+
+def semantic_pretrained_dir(folder: str) -> list:
+    """A pretraining-style directory: ``config.json``, the generated
+    ``vocab.txt`` and the seeded ``bert.*`` (the port's own draw) and
+    ``cls.*`` (an MLM head, the decoder tied to the word embeddings) in
+    ``model.safetensors``, with no classifier; returns the vocabulary."""
+    import torch
+    from safetensors.torch import save_file
+
+    from speaker3d_tpu_torch.semantic.bert import build_model
+
+    cfg = SEM_BERT_CONFIG
+    os.makedirs(folder)
+    vocab = semantic_vocab()
+    with open(os.path.join(folder, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    model = build_model(
+        "sequence", seed=SEM_SEED, device="cpu", vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        num_hidden_layers=cfg["num_hidden_layers"],
+        num_attention_heads=cfg["num_attention_heads"])
+    sd = {k: v for k, v in model.state_dict().items()
+          if k.startswith("bert.")}
+    gen = torch.Generator().manual_seed(SEM_SEED + 1)
+    h, v = cfg["hidden_size"], cfg["vocab_size"]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen) * cfg["initializer_range"]
+
+    sd.update({
+        "cls.predictions.bias": torch.zeros(v),
+        "cls.predictions.transform.dense.weight": normal(h, h),
+        "cls.predictions.transform.dense.bias": torch.zeros(h),
+        "cls.predictions.transform.LayerNorm.weight": torch.ones(h),
+        "cls.predictions.transform.LayerNorm.bias": torch.zeros(h),
+        "cls.predictions.decoder.weight":
+            sd["bert.embeddings.word_embeddings.weight"].clone(),
+        "cls.seq_relationship.weight": normal(2, h),
+        "cls.seq_relationship.bias": torch.zeros(2)})
+    save_file({k: t.contiguous() for k, t in sd.items()},
+              os.path.join(folder, "model.safetensors"))
+    return vocab
+
+
+def semantic_textgrids(folder: str, seed: int = SEM_SEED) -> None:
+    """SEM_CONVERSATIONS seeded Praat TextGrids: 2-4 of SEM_SPEAKERS per
+    conversation, one tier each, SEM_TURNS turns of 3-12 sentences (3-14
+    characters, now and then a comma clause, ending in 。？！), each speaker
+    writing from 40 CJK characters of its own."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder)
+    chars = rng.permutation(0x9FFF - 0x4E00)[:40 * SEM_SPEAKERS] + 0x4E00
+    charsets = [[chr(int(c)) for c in chars[40 * s:40 * (s + 1)]]
+                for s in range(SEM_SPEAKERS)]
+
+    def sentence(cs):
+        text = "".join(rng.choice(cs, int(rng.integers(3, 15))))
+        if rng.random() < 0.3:
+            text += "，" + "".join(rng.choice(cs, 4))
+        return text + str(rng.choice(list(SEM_PUNCT[:3])))
+
+    for conv in range(SEM_CONVERSATIONS):
+        speakers = rng.choice(SEM_SPEAKERS, int(rng.integers(2, 5)),
+                              replace=False)
+        tiers = {int(s): [] for s in speakers}
+        t = 0.0
+        for _ in range(SEM_TURNS):
+            spk = int(rng.choice(speakers))
+            text = "".join(sentence(charsets[spk])
+                           for _ in range(int(rng.integers(3, 13))))
+            dur = round(float(rng.uniform(0.5, 4.0)), 3)
+            tiers[spk].append((round(t, 3), round(t + dur, 3), text))
+            t = round(t + dur + float(rng.uniform(0.0, 0.5)), 3)
+        lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+                 "xmin = 0", f"xmax = {t}", "tiers? <exists>",
+                 f"size = {len(tiers)}", "item []:"]
+        for i, (spk, intervals) in enumerate(tiers.items()):
+            lines += [f"    item [{i + 1}]:", '        class = "IntervalTier"',
+                      f'        name = "spk{spk}"', "        xmin = 0",
+                      f"        xmax = {t}",
+                      f"        intervals: size = {len(intervals)}"]
+            for j, (a, b, text) in enumerate(intervals):
+                lines += [f"        intervals [{j + 1}]:",
+                          f"            xmin = {a}", f"            xmax = {b}",
+                          f'            text = "{text}"']
+        with open(os.path.join(folder, f"conv{conv:02d}.TextGrid"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def semantic_corpus(folder: str) -> dict:
+    """The TextGrids through ``data.semantic_prep textgrid``, the scp split
+    into train and eval conversations, each through ``json``: {(task,
+    split): JSONL path}, and the window counts."""
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.data import semantic_prep
+
+    tg = os.path.join(folder, "textgrid")
+    semantic_textgrids(tg)
+    scp = os.path.join(folder, "trans7time.scp")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if semantic_prep.main(["textgrid", "--textgrid_dir", tg, "--out_dir",
+                               os.path.join(folder, "trans7time"), "--scp",
+                               scp]) != 0:
+            raise AssertionError("semantic_prep textgrid failed")
+    with open(scp) as f:
+        lines = f.read().splitlines()
+    if len(lines) != SEM_CONVERSATIONS:
+        raise AssertionError(f"semantic_prep textgrid wrote {len(lines)} "
+                             f"trans7time files of {SEM_CONVERSATIONS}")
+    files, counts = {}, {}
+    n_eval = SEM_EVAL_CONVERSATIONS
+    for split, part in (("train", lines[:-n_eval]), ("eval", lines[-n_eval:])):
+        split_scp = os.path.join(folder, f"{split}.scp")
+        with open(split_scp, "w") as f:
+            f.write("\n".join(part) + "\n")
+        for task in ("dialogue", "turn"):
+            files[task, split] = os.path.join(folder, f"{task}_{split}.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()):
+            semantic_prep.main(["json", "--trans7time_scp", split_scp,
+                                "--dialogue_out", files["dialogue", split],
+                                "--turn_out", files["turn", split]])
+        with open(files["dialogue", split], encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        counts[split] = {"windows": len(rows),
+                         "multi_speaker": sum(r["label"] for r in rows),
+                         "max_chars": max(len(r["text"]) for r in rows)}
+    return {"files": files, "counts": counts}
+
+
+def _semantic_cli(task: str, files: dict, pretrained: str, exp: str) -> dict:
+    """``cli.semantic`` in this process on the card, its launch counts set
+    to 0 just before and read just after: the epoch lines, the eval
+    metrics, the wall."""
+    import contextlib
+    import io
+
+    from speaker3d_tpu_torch.cli import semantic
+
+    buf = io.StringIO()
+    argv = [task, "--train", files[task, "train"], "--eval",
+            files[task, "eval"], "--exp_dir", exp, "--pretrained",
+            pretrained] + SEM_ARGS
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        k1, k2, k2b = _counted3(lambda: semantic.main(argv))
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    losses = [float(x) for x in re.findall(r"^epoch \d+: loss ([\d.]+)$",
+                                           out, re.M)]
+    epochs = re.findall(_SEM_EPOCH_LINE, out, re.M)
+    with open(os.path.join(exp, "metrics.json")) as f:
+        metrics = json.load(f)
+    if len(losses) != 2 or len(epochs) != 2 or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"cli.semantic {task}: epoch lines {losses} "
+                             f"{epochs}:\n{out[-3000:]}")
+    last = epochs[-1]
+    return {"losses": losses, "steps": sum(int(e[1]) for e in epochs),
+            "batch": int(last[2]), "step_ms_median_last_epoch": float(last[3]),
+            "first_step_ms": float(epochs[0][4]),
+            "samples_per_s_last_epoch": float(last[5]),
+            "data_wait_share": (sum(float(e[6]) for e in epochs)
+                                / sum(float(e[7]) for e in epochs)),
+            "peak_gib": float(last[8]), "metrics": metrics, "wall_s": wall,
+            "k1": k1, "k2": k2, "k2_bf16": k2b}
+
+
+def semantic_step_diffs(card: dict, cpu: dict,
+                        held: str = ".attention.self.key.bias") -> dict:
+    """Gradients card against CPU: each leaf's max error over its largest
+    entry, their median and the worst, over every leaf but ``held``, whose
+    gradient is zero but for rounding (a bias on the keys shifts each
+    query's scores by one constant, which the softmax removes): the largest
+    of those against the largest gradient of all."""
+    errs, held_top = {}, 0.0
+    top = max(float(g.abs().max()) for g in cpu.values())
+    for k, g in cpu.items():
+        if k.endswith(held):
+            held_top = max(held_top, float(g.abs().max()),
+                           float(card[k].abs().max()))
+            continue
+        scale = float(g.abs().max())
+        if scale > 0:
+            errs[k] = float((card[k] - g).abs().max()) / scale
+    worst = max(errs, key=errs.get)
+    return {"median": float(np.median(list(errs.values()))),
+            "worst": errs[worst], "worst_leaf": worst,
+            "held_of_top": held_top / top}
+
+
+def _semantic_step_check(task: str, pretrained: str, tokenizer,
+                         rows: list) -> dict:
+    """At full width, B = SEM_CHECK_BATCH of ``rows``, from the pretrained
+    directory's weights (the classifier the seeded draw) on the card and on
+    the CPU: the logits, then one AdamW step's loss and gradients."""
+    import copy
+
+    import torch
+
+    from speaker3d_tpu_torch.cli.semantic import encode
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.semantic.bert import (
+        SemanticTrainConfig, build_model, make_semantic_train_step)
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+
+    token_level = task == "turn"
+    ids, mask, labels = (torch.from_numpy(a).long() for a in encode(
+        rows[:SEM_CHECK_BATCH], tokenizer, int(SEM_ARGS[1]), token_level))
+    cfg = SemanticTrainConfig(total_steps=10)
+    base = build_model("token" if token_level else "sequence",
+                       pretrained_dir=pretrained, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev) if dev == "cuda" else base
+        batch = {"input_ids": ids.to(dev), "attention_mask": mask.to(dev),
+                 "labels": labels.to(dev)}
+        t0 = time.perf_counter()
+        with torch.no_grad(), matmul_precision("float32", dev):
+            logits = model(batch["input_ids"], batch["attention_mask"]).cpu()
+        state = init_adam_train_state(model, dev)
+        loss = float(make_semantic_train_step(model, cfg, token_level)(
+            state, batch)["loss"])
+        grads = {k: (m / (1 - cfg.beta1)).cpu()
+                 for k, m in state.adam_m.items()}
+        out[dev] = (logits, loss, grads, time.perf_counter() - t0)
+        del model, state
+    del base
+    (lc, loss_c, gc, sc), (lh, loss_h, gh, sh) = out["cuda"], out["cpu"]
+    res = {"logits_err_of_scale": float((lc - lh).abs().max()
+                                        / lh.abs().max()),
+           "loss": loss_h, "loss_rel": abs(loss_c - loss_h) / abs(loss_h),
+           "grads": semantic_step_diffs(gc, gh), "card_s": sc, "cpu_s": sh}
+    g = res["grads"]
+    if not (res["logits_err_of_scale"] <= SEM_LOGIT_TOL
+            and res["loss_rel"] <= SEM_LOSS_REL
+            and g["median"] <= SEM_GRAD_TOL["median"]
+            and g["worst"] <= SEM_GRAD_TOL["worst"]
+            and g["held_of_top"] <= SEM_GRAD_TOL["held"]):
+        raise AssertionError(f"semantic {task} card vs CPU: {res}")
+    return res
+
+
+def _semantic_batch(rng, token_level: bool, b: int = 8, n: int = 16) -> dict:
+    """tests/test_semantic_bert.py's batch: label-1 rows open with n / 2 of
+    token 7; token labels 1 at each 7, the last two ignored."""
+    labels_seq = rng.integers(0, 2, b).astype(np.int32)
+    ids = rng.integers(10, 50, (b, n)).astype(np.int32)
+    for i, y in enumerate(labels_seq):
+        if y:
+            ids[i, : n // 2] = 7
+    mask = np.ones((b, n), np.int32)
+    if token_level:
+        labels = np.where(ids == 7, 1, 0).astype(np.int32)
+        labels[:, -2:] = -100
+    else:
+        labels = labels_seq
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def _semantic_gate() -> dict:
+    """tests/test_semantic_bert.py's learning gate on the card, both
+    tasks."""
+    import torch
+
+    from speaker3d_tpu_torch.semantic.bert import (
+        SemanticTrainConfig, build_model, classification_metrics,
+        make_semantic_train_step)
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+
+    res = {}
+    for task in ("sequence", "token"):
+        model = build_model(task, num_labels=2, device="cuda",
+                            **SEM_GATE_MODEL)
+        state = init_adam_train_state(model, "cuda")
+        step = make_semantic_train_step(
+            model, SemanticTrainConfig(lr=5e-3, total_steps=100),
+            task == "token")
+        rng = np.random.default_rng(0)
+        losses = []
+        for _ in range(SEM_GATE_STEPS):
+            batch = _semantic_batch(rng, task == "token")
+            out = step(state, {k: torch.from_numpy(v).long().cuda()
+                               for k, v in batch.items()})
+            losses.append(float(out["loss"]))
+        m = classification_metrics(batch["labels"], out["preds"].cpu().numpy())
+        res[task] = {"first_loss": losses[0], "last_loss": losses[-1],
+                     "accuracy": m["accuracy"]}
+        if not (losses[-1] < SEM_GATE["loss_ratio"] * losses[0]
+                and m["accuracy"] > SEM_GATE["accuracy"]):
+            raise AssertionError(f"semantic gate {task}: {res[task]}")
+    return res
+
+
+def phase_semantic(work: str, smi: str) -> dict:
+    """Semantic speaker analysis at bert-base-chinese's width: the
+    pretraining directory, the TextGrid corpus through semantic_prep, both
+    tasks through the CLI, the card against the CPU, the learning gate."""
+    from importlib import metadata
+
+    import torch
+
+    from speaker3d_tpu_torch.cli.semantic import (
+        load_jsonl, pretrained_tokenizer)
+
+    folder = os.path.join(work, "semantic")
+    t0 = time.perf_counter()
+    vocab = semantic_pretrained_dir(os.path.join(folder, "bert"))
+    pretrained = os.path.join(folder, "bert")
+    dir_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = semantic_corpus(folder)
+    files = corpus["files"]
+    log(f"[semantic] a pretraining directory at bert-base-chinese's widths "
+        f"(vocab {len(vocab)}, {SEM_BERT_CONFIG['num_hidden_layers']} x "
+        f"{SEM_BERT_CONFIG['hidden_size']}, {SEM_BERT_CONFIG['num_attention_heads']}"
+        f" heads, intermediate {SEM_BERT_CONFIG['intermediate_size']}; "
+        f"seeded bert.* and cls.*, no classifier) in {dir_s:.1f} s; "
+        f"{SEM_CONVERSATIONS} TextGrids of 2-4 speakers through "
+        f"semantic_prep textgrid and json in {time.perf_counter() - t0:.1f} "
+        f"s: {json.dumps(corpus['counts'])}")
+
+    # the card's transformers reads the directory's tokenizer: [CLS], one id
+    # per character, [SEP], so the turn labels line up with the tokens
+    tokenizer, vocab_size = pretrained_tokenizer(pretrained)
+    index = {tok: i for i, tok in enumerate(vocab)}
+    rows = load_jsonl(files["turn", "train"])
+    seq = int(SEM_ARGS[1])
+    for row in rows:
+        text = row["text"][:seq - 2]
+        ids, mask = tokenizer(row["text"], seq)
+        want = [index["[CLS]"]] + [index[c] for c in text] + [index["[SEP]"]]
+        if (ids[:len(want)] != want or sum(mask) != len(want)
+                or len(ids) != seq or len(row["labels"]) != len(row["text"])):
+            raise AssertionError(f"tokenizer: {row['text']!r} -> {ids}")
+    if vocab_size != len(vocab):
+        raise AssertionError(f"tokenizer vocab {vocab_size} != {len(vocab)}")
+    version = metadata.version("transformers")
+    log(f"[semantic tokenizer] transformers {version} AutoTokenizer: "
+        f"{len(rows)} train windows each [CLS], one id per character, "
+        f"[SEP] (the turn labels line up)")
+
+    runs = {}
+    for task in ("dialogue", "turn"):
+        torch.cuda.empty_cache()
+        run = runs[task] = _semantic_cli(
+            task, files, pretrained, os.path.join(folder, f"exp_{task}"))
+        log(f"[semantic {task}] {smi}: cli.semantic {task} --pretrained "
+            f"(bert-base-chinese's widths) {' '.join(SEM_ARGS)}, its main in "
+            f"this process, fp32 with TF32 off: {run['steps']} steps "
+            f"of {run['batch']}, step {run['step_ms_median_last_epoch']:.2f} "
+            f"ms (median of the last epoch, CUDA events; the first "
+            f"{run['first_step_ms']:.1f}), {run['samples_per_s_last_epoch']:.1f}"
+            f" samples/s, data wait {run['data_wait_share']:.1%}, peak memory "
+            f"{run['peak_gib']:.2f} GiB; losses by epoch {run['losses']}; "
+            f"eval {json.dumps(run['metrics'])}; launches K1 {run['k1']} K2 "
+            f"{run['k2']}; {run['wall_s']:.1f} s")
+        if run["k1"] or run["k2"] or run["k2_bf16"]:
+            raise AssertionError(f"semantic {task} launched an audio kernel")
+
+    checks = {}
+    for task in ("dialogue", "turn"):
+        checks[task] = c = _semantic_step_check(
+            task, pretrained, tokenizer, load_jsonl(files[task, "train"]))
+        g = c["grads"]
+        log(f"[semantic step {task}] {smi}: B = {SEM_CHECK_BATCH}, L = {seq}"
+            f" at full width, the card vs the CPU (TF32 off): logits "
+            f"{c['logits_err_of_scale']:.3g} of scale (<= {SEM_LOGIT_TOL:g}), "
+            f"loss {c['loss']:.5f} rel {c['loss_rel']:.3g} (<= "
+            f"{SEM_LOSS_REL:g}), gradients median {g['median']:.3g} worst "
+            f"{g['worst']:.3g} ({g['worst_leaf']}) of scale, the keys' biases "
+            f"{g['held_of_top']:.3g} of the largest gradient ({SEM_GRAD_TOL});"
+            f" card {c['card_s']:.2f} s, CPU {c['cpu_s']:.2f} s")
+    gate = _semantic_gate()
+    log(f"[semantic gate] tests/test_semantic_bert.py's recipe on the card "
+        f"({SEM_GATE_STEPS} steps, lr 5e-3): "
+        f"{json.dumps({k: {n: round(x, 4) for n, x in v.items()} for k, v in gate.items()})}"
+        f" (last loss < {SEM_GATE['loss_ratio']} x the first, accuracy > "
+        f"{SEM_GATE['accuracy']})")
+    torch.cuda.empty_cache()
+    return {"k1": sum(r["k1"] for r in runs.values()),
+            "k2": sum(r["k2"] for r in runs.values()),
+            "stats": {"runs": runs, "checks": checks, "gate": gate,
+                      "corpus": corpus["counts"], "transformers": version}}
+
+
 def _reap_children() -> None:
     for proc in _CHILDREN:
         if proc.poll() is None:
@@ -5745,6 +6213,7 @@ def _main(device, timed, phase_s, t_script) -> int:
         asd = timed("asd", phase_asd, video.pop("asd_started"),
                     video.pop("asd_data"), smi)
         drivers = timed("drivers", phase_drivers, work, models, smi)
+        sem = timed("semantic", phase_semantic, work, smi)
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = timed("k1", phase_k1, lengths, pipe["main_len"],
                train["stats"]["batch"], dnn["k1_shapes"] + asr["k1_shapes"])
@@ -5780,7 +6249,8 @@ def _main(device, timed, phase_s, t_script) -> int:
                                  "video": video[key],
                                  "asd_train": asd[key],
                                  "drivers": drivers[key],
-                                 "bf16_embed": bf16[key], "int8": int8[key]}
+                                 "bf16_embed": bf16[key], "int8": int8[key],
+                                 "semantic": sem[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     # K2's bf16 variant runs on the bf16 embed path only (every other path
     # above checked that it launched none)
@@ -5807,7 +6277,8 @@ def _main(device, timed, phase_s, t_script) -> int:
                     "drivers": drivers["stats"],
                     "bf16_embed": {m: {str(k): v for k, v in r.items()}
                                    for m, r in bf16["runs"].items()},
-                    "int8": int8["runs"], "phase_s": phase_s,
+                    "int8": int8["runs"], "semantic": sem["stats"],
+                    "phase_s": phase_s,
                     "script_s": time.perf_counter() - t_script}))
     log(f"[script] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2b, k3]}))

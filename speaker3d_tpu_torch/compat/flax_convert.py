@@ -6,6 +6,7 @@ Flax submodules are named like the reference's torch attribute paths
 
   - Conv kernel HWIO [kH, kW, I, O] -> OIHW [O, I, kH, kW] (WIO -> OIW)
   - Dense kernel [I, O]            -> Linear weight [O, I]
+  - Embed embedding [N, D]         -> Embedding weight [N, D] (as it is)
   - BatchNorm scale/bias           -> weight/bias
   - batch_stats mean/var           -> running_mean/running_var (and a zero
     ``num_batches_tracked``, which torch's BatchNorm keeps as a buffer)
@@ -30,9 +31,12 @@ Flax submodules named ``<name>.{i}`` (the FSMN VAD and segmenter, SAN-M's
 ``joined`` (SAN-M's ``feed_forward.w_1``; ECAPA's ``norm.norm``,
 ``asp_bn.norm``, ``fc.conv``; TalkNet's ``se.fc.0``, ``visualTCN.net.0``),
 whose k=1 convs that Flax holds as Dense layers are named in ``dense``
-(ECAPA's ``fc.conv``), and whose torch-layout parameters are matched by
-``raw`` (TalkNet's): the port's trainers write their checkpoints in the JAX
-trainers' layout with it.
+(ECAPA's ``fc.conv``), whose embedding tables are named in ``embed`` (BERT's
+``word_embeddings``, ``position_embeddings``, ``token_type_embeddings``),
+and whose torch-layout parameters are matched by ``raw`` (TalkNet's): the
+port's trainers write their checkpoints in the JAX trainers' layout with
+it. A Flax module list nested as ``layer/{i}`` (BERT's encoder) comes out
+as ``layer.{i}``; flattened to dotted names the two trees are the same.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 _LEAF_TO_TORCH = {
     "kernel": "weight",
+    "embedding": "weight",  # an Embed table [N, D], as torch's
     "scale": "weight",
     "bias": "bias",
     "mean": "running_mean",
@@ -127,12 +132,15 @@ def _flax_module_path(parts, joined: Sequence[str] = ()):
 def flax_from_state_dict(state_dict: Mapping[str, Any],
                          joined: Sequence[str] = (),
                          dense: Sequence[str] = (),
-                         raw: Sequence[str] = ()) -> dict:
+                         raw: Sequence[str] = (),
+                         embed: Sequence[str] = ()) -> dict:
     """A state_dict -> ``{'params'[, 'batch_stats']}`` as nested dicts of
     numpy arrays, the inverse of ``state_dict_from_flax``: a ``weight`` of
     1 dimension is a norm's ``scale``, of 2 a Dense kernel [I, O], of 3 a
     Conv kernel [k, I, O] (a Dense kernel [I, O] where the module's Flax
-    name is in ``dense``), of 4 an HWIO kernel and of 5 a DHWIO kernel;
+    name is in ``dense``), of 4 an HWIO kernel and of 5 a DHWIO kernel; a
+    ``weight`` of a module whose Flax name is in ``embed`` is an Embed
+    table's ``embedding``, as it is;
     ``weight_g`` and ``weight_v`` are copied as they are; ``running_mean``
     and ``running_var`` go to ``batch_stats``; ``num_batches_tracked`` is
     dropped. ``joined``: the Flax submodule names that hold a dot besides
@@ -156,6 +164,8 @@ def flax_from_state_dict(state_dict: Mapping[str, Any],
         path = _flax_module_path(mods, joined)
         if match is not None or leaf in _RAW_LEAVES:
             pass
+        elif leaf == "weight" and path and path[-1] in embed:
+            leaf = "embedding"
         elif leaf == "weight":
             if t.ndim == 1:
                 leaf = "scale"

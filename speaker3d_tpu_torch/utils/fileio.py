@@ -5,8 +5,9 @@ helpers.
 The port's own copy of ``speaker3d_tpu/utils/fileio.py``'s audio half and
 of its list and file helpers (``load_yaml``, ``load_data_csv``,
 ``load_data_list``, ``load_wav_scp``, ``load_utt2spk``, ``write_wav_scp``,
-``load_json_file``, ``write_json_file``): stdlib ``wave`` + numpy for PCM
-WAV, polyphase resampling with scipy.
+``load_json_file``, ``write_json_file``, ``load_trans7time_list``,
+``write_trans7time_list``): stdlib ``wave`` + numpy for PCM WAV, polyphase
+resampling with scipy.
 """
 
 from __future__ import annotations
@@ -189,3 +190,28 @@ def write_json_file(path, data):
         raise ValueError(f"not a .json path: {path}")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(data, f, indent=2, ensure_ascii=False)
+
+
+def load_trans7time_list(path):
+    """Lines of ``spk_id start end [text...]`` -> [(spk_id, start, end,
+    text)], the text's words joined without spaces."""
+    out = []
+    with open(path) as f:
+        for index, line in enumerate(f):
+            item = line.strip().split()
+            if not item:
+                continue
+            if len(item) <= 2:
+                raise ValueError(f"{path}: item {index} = {item}")
+            text = "" if len(item) == 3 else "".join(item[3:])
+            out.append((item[0], float(item[1]), float(item[2]), text))
+    return out
+
+
+def write_trans7time_list(path, trans7time_list):
+    """[(spk_id, start, end, text)] -> ``spk_id start end text`` per line,
+    line breaks dropped from the text."""
+    with open(path, "w") as f:
+        for spk_id, st, ed, text in trans7time_list:
+            text = str(text).replace("\n", "").replace("\r", "")
+            f.write(f"{spk_id} {st} {ed} {text}\n")

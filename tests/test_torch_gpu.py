@@ -1343,3 +1343,95 @@ def test_remat_equals_without_on_the_card(cuda, name):
             torch.testing.assert_close(r_sd[k], v, rtol=1e-5, atol=1e-5)
         elif k.endswith("num_batches_tracked"):
             assert int(r_sd[k]) == int(v) == 1, k
+
+
+SEMANTIC_WIDTH = dict(vocab_size=1000, hidden_size=256, num_hidden_layers=4,
+                      num_attention_heads=4)
+
+
+def semantic_batch(rng, token_level, b=8, n=64, vocab=1000):
+    """Class-indicative ids (label-1 rows open with token 7), rows padded to
+    n / 2 - n tokens, the first and last tokens' labels ignored."""
+    y = rng.integers(0, 2, b)
+    ids = rng.integers(10, vocab, (b, n))
+    ids[y == 1, : n // 4] = 7
+    mask = np.ones((b, n), np.int64)
+    for i, length in enumerate(rng.integers(n // 2, n + 1, b)):
+        mask[i, length:] = 0
+        ids[i, length:] = 0
+    if token_level:
+        labels = (ids == 7).astype(np.int64)
+        labels[:, 0] = labels[:, -1] = -100
+    else:
+        labels = y
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+            (("input_ids", ids), ("attention_mask", mask),
+             ("labels", labels))}
+
+
+@pytest.mark.parametrize("task", ["sequence", "token"])
+def test_semantic_bert_on_the_card_matches_the_cpu(cuda, task):
+    """Both heads' logits on the card against the CPU from one seeded BERT,
+    TF32 off: within 1e-4 of their scale."""
+    from speaker3d_tpu_torch.semantic.bert import build_model
+
+    batch = semantic_batch(np.random.default_rng(0), task == "token")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(task, seed=2, device=dev, **SEMANTIC_WIDTH)
+        with torch.no_grad(), matmul_precision("float32", dev):
+            out[dev.type] = model(batch["input_ids"].to(dev),
+                                  batch["attention_mask"].to(dev)).cpu()
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4 * scale
+
+
+def semantic_step_diffs(card, cpu, held=".attention.self.key.bias"):
+    """Gradients (first moments / (1 - b1) after one step) card against
+    CPU: each leaf's max error over its largest entry, the median and the
+    worst over the leaves but ``held``, whose gradient is zero but for
+    rounding (a bias on the keys shifts each query's scores by one
+    constant, which the softmax removes): the largest of those against the
+    largest gradient of all."""
+    errs, top = {}, max(float(g.abs().max()) for g in cpu.values())
+    held_top = 0.0
+    for k, g in cpu.items():
+        if k.endswith(held):
+            held_top = max(held_top, float(g.abs().max()),
+                           float(card[k].abs().max()))
+            continue
+        scale = float(g.abs().max())
+        if scale > 0:
+            errs[k] = float((card[k] - g).abs().max()) / scale
+    worst = max(errs, key=errs.get)
+    return {"median": float(np.median(list(errs.values()))),
+            "worst": errs[worst], "worst_leaf": worst,
+            "held_of_top": held_top / top}
+
+
+@pytest.mark.parametrize("task", ["sequence", "token"])
+def test_semantic_train_step_on_the_card_matches_the_cpu(cuda, task):
+    """One AdamW step on the card against the CPU's from one seeded BERT:
+    loss to rtol 1e-5, gradients at a median 1e-4 and a worst leaf 1e-2 of
+    their scale, the keys' biases' gradients rounding noise."""
+    from speaker3d_tpu_torch.semantic.bert import (
+        SemanticTrainConfig, build_model, make_semantic_train_step)
+    from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
+
+    token_level = task == "token"
+    batch = semantic_batch(np.random.default_rng(1), token_level)
+    cfg = SemanticTrainConfig(lr=1e-4, total_steps=10)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(task, seed=3, device=dev, **SEMANTIC_WIDTH)
+        state = init_adam_train_state(model, dev)
+        step = make_semantic_train_step(model, cfg, token_level)
+        loss = float(step(state, {k: v.to(dev) for k, v in batch.items()})
+                     ["loss"])
+        out[dev.type] = (loss, {k: (m / (1 - cfg.beta1)).cpu()
+                                for k, m in state.adam_m.items()})
+    assert np.isfinite(out["cuda"][0])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    d = semantic_step_diffs(out["cuda"][1], out["cpu"][1])
+    assert d["median"] <= 1e-4 and d["worst"] <= 1e-2, d
+    assert d["held_of_top"] <= 1e-5, d

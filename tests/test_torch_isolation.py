@@ -12,6 +12,8 @@
   detector trainer's JSONL batches, the ASD loader's ``load_visual``, and
   two functions of ``chip_smoke.py``: the MJPG video and the ASD corpus's
   jpg crops).
+- Every module also imports with ``transformers`` blocked, which is imported
+  only in the semantic CLI's ``--pretrained`` tokenizer.
 - The entry points raise without a CUDA device unless the caller passes
   ``device="cpu"``: nothing falls back to the CPU on its own.
 """
@@ -41,6 +43,9 @@ CV2_FUNCTIONS = {
     ("speaker3d_tpu_torch/data/dataset_asd.py", "load_visual"),
     ("chip_smoke.py", "_video_cv2"),
     ("chip_smoke.py", "asd_corpus"),
+}
+TRANSFORMERS_FUNCTIONS = {
+    ("speaker3d_tpu_torch/cli/semantic.py", "pretrained_tokenizer"),
 }
 
 
@@ -87,15 +92,16 @@ def test_package_has_the_slice_modules():
                  "data.dataset_asd", "train.asd_train", "cli.train_asd",
                  "cli.run_diarization_simple", "cli.run_diarization_on_dir",
                  "cli.run_diarization_speech_estimate", "cli.train_para",
-                 "compat.funasr_convert"):
+                 "compat.funasr_convert", "semantic.bert",
+                 "data.semantic_prep", "cli.semantic"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
 def test_every_module_imports_without_jax():
-    """... and without cv2."""
+    """... and without cv2 or transformers."""
     code = (
         "import sys\n"
-        f"for name in {FORBIDDEN + ('cv2',)!r}:\n"
+        f"for name in {FORBIDDEN + ('cv2', 'transformers')!r}:\n"
         "    sys.modules[name] = None  # any import of it raises ImportError\n"
         "import importlib\n"
         f"for m in {_modules()!r}:\n"
@@ -137,7 +143,9 @@ def test_no_jax_imports_in_source():
     assert not offenders, offenders
 
 
-def test_cv2_only_inside_the_named_functions():
+def _imports_by_function(module: str, allowed: set) -> set:
+    """The (file, function) pairs that import ``module``; each must be in
+    ``allowed``."""
     found = set()
     for path in _sources():
         rel = os.path.relpath(path, ROOT)
@@ -151,16 +159,24 @@ def test_cv2_only_inside_the_named_functions():
                     names = [a.name for a in child.names]
                 elif isinstance(child, ast.ImportFrom) and child.module:
                     names = [child.module]
-                if any(n.split(".")[0] == "cv2" for n in names):
-                    assert (rel, func) in CV2_FUNCTIONS, (rel, func,
-                                                          child.lineno)
+                if any(n.split(".")[0] == module for n in names):
+                    assert (rel, func) in allowed, (rel, func, child.lineno)
                     found.add((rel, func))
                 inner = (child.name if isinstance(
                     child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
                 visit(child, inner)
 
         visit(tree, None)
-    assert found == CV2_FUNCTIONS
+    return found
+
+
+def test_cv2_only_inside_the_named_functions():
+    assert _imports_by_function("cv2", CV2_FUNCTIONS) == CV2_FUNCTIONS
+
+
+def test_transformers_only_inside_the_tokenizer():
+    assert (_imports_by_function("transformers", TRANSFORMERS_FUNCTIONS)
+            == TRANSFORMERS_FUNCTIONS)
 
 
 @pytest.fixture
@@ -201,7 +217,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                              else "--scores_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         infer_sv.main(["--model_id", "m", "--wavs", "a.wav"])
-    from speaker3d_tpu_torch.cli import train_para
+    from speaker3d_tpu_torch.cli import semantic, train_para
+    from speaker3d_tpu_torch.semantic.bert import build_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model("sequence", hidden_size=32, num_hidden_layers=1,
+                    num_attention_heads=2)
+    for task in ("dialogue", "turn"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            semantic.main([task, "--train", "t", "--eval", "e",
+                           "--exp_dir", str(tmp_path / "sem")])
+    assert semantic.get_args(["turn", "--train", "t", "--eval", "e",
+                              "--exp_dir", "x"]).device == "cuda"
     for trainer in (train, train_vad, train_segmentation, train_ssl,
                     train_face_detector, train_para):
         with pytest.raises(RuntimeError, match="CUDA"):
