@@ -6,8 +6,9 @@ with remat on every kind of backbone, the ASR-encoder-fused SV, VAD,
 segmenter, CTC ASR, self-supervised RDINO/SDPN, face detector and TalkNet
 ASD trainers), speaker-attributed transcription, label prediction,
 sequential-speaker boundaries, semantic speaker analysis (BERT dialogue and
-speaker-turn detection), every registry backbone and the recipe backbones,
-on one GPU.
+speaker-turn detection), export and native serving (torch.export programs,
+AOTInductor packages, the libtorch CLI), every registry backbone and the
+recipe backbones, on one GPU.
 
     python3 chip_smoke.py
 
@@ -315,7 +316,27 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     for rounding, below 1e-5 of the largest gradient); then
     ``tests/test_semantic_bert.py``'s learning gate on the card (a tiny
     BERT, 25 steps at lr 5e-3, both tasks: the last loss under 0.7 of the
-    first, the last batch's accuracy above 0.8).
+    first, the last batch's accuracy above 0.8);
+27. (started after item 3, collected after item 26) export and native
+    serving: in a process of its own beside the other phases (Inductor's
+    compile threads capped at EXPORT_COMPILE_THREADS) the export CLI on
+    the 17.8M model with ``--aot_dir`` and ``--aot_buckets 1.5,3`` (the
+    export, its verification and each AOTInductor compile timed), an AOTI
+    package of the dynamic-batch program, w24s4ep4 as a .pt2 only (no
+    Res2 block runs K2 there), the native runtime's CUDA build, then the
+    native CLI over item 4's utterances with ``--engine aot`` (libtorch,
+    no Python; ``s3d::res2_block`` registered in C++, its launches
+    printed) and ``--engine bridge`` (embedded CPython), once item 20 is
+    done (the trainers' peaks fill the card), beside items 21 and 26: the
+    aot engine's embeddings against the port's Python path with the same
+    chunk plan (1.5 and 3 s buckets, 3 s chunks, the 90 s cap), the bridge
+    engine's against item 4's ``extract --mode exact`` (cosine >= 0.9999),
+    the aot engine's K2 launches 7 per chunk, each engine's RTF; the .pt2
+    at batch 1 and 7, each bucket's package at batch 1 and the dynamic
+    package at batch 1 and 7 against the eager port (cosine >= 0.9999; K2
+    launched 7 times a call, K1 never); then, with the card otherwise
+    idle, the .pt2, the dynamic package and eager timed at [64, 300, 80];
+    here: both programs' batch axis dynamic, the buckets.
 
 The kernels line gives K1's and K2's times at the L of the diarization
 file's chunk calls (the path's most frequent batch), every other shape in
@@ -324,9 +345,10 @@ diarization, SV, backbone, server, clustering-CLI and analysis runs
 together, and in the training, bf16 training, ``extract --exp_dir``, DNN
 front-end, VAD/segmenter training, transcription, CTC training,
 ``predict_label``, SSL (none), boundaries, video, ASD training (none),
-driver, ASR-encoder-fused training, remat-check and semantic (none) runs
-(``launches_by_path`` apart). Each phase's wall time is printed
-as ``[phase] <name> <s>``.
+driver, ASR-encoder-fused training, remat-check, semantic (none), export
+(the exported programs' checks, counted in item 27's process) and native
+(the aot engine's C++ count) runs (``launches_by_path`` apart). Each
+phase's wall time is printed as ``[phase] <name> <s>``.
 
 K2's bf16 variant (``res2_block_bf16``) gives its time per [64, L] batch
 of the 17.8M model at the chunk calls' L and its launches on the bf16 embed
@@ -1221,12 +1243,10 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
 
     sv = os.path.join(work, "sv")
     os.makedirs(sv)
-    scp, wavs = os.path.join(sv, "wav.scp"), {}
+    scp, wavs = os.path.join(sv, "wav.scp"), sv_wavs()
     with open(scp, "w") as f:
-        for i, sec in enumerate(SV_SECONDS):
-            utt = f"spk{i % SV_SPEAKERS}_utt{i}"
-            wavs[utt] = synth_utterance(sec, i % SV_SPEAKERS, seed=100 + i)
-            write_wav(os.path.join(sv, f"{utt}.wav"), wavs[utt], FS)
+        for utt, wav in wavs.items():
+            write_wav(os.path.join(sv, f"{utt}.wav"), wav, FS)
             f.write(f"{utt} {os.path.join(sv, utt)}.wav\n")
     short = min(wavs, key=lambda u: len(wavs[u]))
     # infer_sv_batch's wav list names one file that does not exist
@@ -6163,6 +6183,341 @@ def phase_semantic(work: str, smi: str) -> dict:
                       "corpus": corpus["counts"], "transformers": version}}
 
 
+# the export phase (item 27): the 17.8M model through the export CLI with
+# AOTInductor duration buckets of 1.5 and 3 s (148 and 298 frames; the last
+# is the native CLI's chunk), checked at the CLI's trace length
+EXPORT_BUCKETS = (1.5, 3.0)
+EXPORT_FRAMES = 300               # the CLI's --frames default
+EXPORT_BATCHES = (1, 7)           # the dynamic-batch program's checks
+EXPORT_TIMED = 64                 # the timed batch: [64, 300, 80]
+EXPORT_COMPILE_THREADS = 2        # Inductor's, beside the CPU-bound phases
+EXPORT_COS = 0.9999
+_RTF_LINE = (r"processed (\d+) utts, ([\d.]+) s audio in ([\d.]+) s wall "
+             r"\(RTF ([\d.]+)")
+_NATIVE_LAUNCHES = r"res2_block launches: (\d+) (\d+)"
+
+# the export phase's compiles, build, native runs and checks in a process of
+# its own, paced by the lines this process sends (``export_child``)
+_EXPORT_RUNNER = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "out = chip_smoke.export_child(*sys.argv[2:])\n"
+    "print('[export child] ' + json.dumps(out), flush=True)\n")
+
+
+def sv_wavs() -> dict:
+    """The SV phase's utterances, {utt: wav}: SV_SECONDS, seeded."""
+    return {f"spk{i % SV_SPEAKERS}_utt{i}": synth_utterance(
+        sec, i % SV_SPEAKERS, seed=100 + i) for i, sec in enumerate(SV_SECONDS)}
+
+
+def _native(exe: str, engine: str, scp: str, out_dir: str, spec: str,
+            extra=()) -> dict:
+    """One run of the native CLI: its RTF line and launch counts."""
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe, scp, out_dir, spec, "--engine", engine,
+                           "--device", "cuda", *extra], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    rtf = re.search(_RTF_LINE, proc.stderr)
+    counts = re.search(_NATIVE_LAUNCHES, proc.stderr)
+    if proc.returncode != 0 or rtf is None or counts is None:
+        raise AssertionError(f"native --engine {engine} failed (rc "
+                             f"{proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return {"utts": int(rtf.group(1)), "audio_s": float(rtf.group(2)),
+            "wall_s": float(rtf.group(3)), "rtf": float(rtf.group(4)),
+            "process_wall_s": wall, "k2": int(counts.group(1)),
+            "k2_bf16": int(counts.group(2)), "out_dir": out_dir}
+
+
+def _read_embs(folder: str) -> dict:
+    return {fn[:-len(".emb")]: np.loadtxt(os.path.join(folder, fn),
+                                          dtype=np.float64).reshape(-1)
+            for fn in sorted(os.listdir(folder)) if fn.endswith(".emb")}
+
+
+def _row_cosines(got, want) -> tuple:
+    """(min row cosine, max abs difference) of two [B, D] arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(
+        want, axis=1)
+    return float(cos.min()), float(np.abs(got - want).max())
+
+
+def _export_compile(folder: str, models: str) -> dict:
+    """Part 1 of ``export_child``: the export CLI on the 17.8M model with
+    --aot_dir and the buckets (its export and each AOTI compile timed), an
+    AOTI package of the dynamic-batch program, w24s4ep4 as a .pt2 only, the
+    native runtime's CUDA build beside them."""
+    import threading
+
+    import torch
+
+    from speaker3d_tpu_torch.cli import export_speaker_embedding as ex
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+    from speaker3d_tpu_torch.runtime import build as runtime_build
+
+    built = {}
+
+    def build_native():
+        t0 = time.perf_counter()
+        try:
+            built["dir"] = runtime_build.build(cuda=True)
+        except Exception as e:  # raised below, on the child's thread
+            built["error"] = repr(e)
+        built["s"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build_native)
+    builder.start()
+    took = {"export_s": [], "aoti_compile_s": []}
+    export_model, compile_ = ex.export_model, torch._inductor.aoti_compile_and_package
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                took[key].append(time.perf_counter() - t0)
+        return call
+
+    ex.export_model = timed("export_s", export_model)
+    torch._inductor.aoti_compile_and_package = timed("aoti_compile_s",
+                                                     compile_)
+    out = {"pt2": os.path.join(folder, "model_17m.pt2"),
+           "aot_dir": os.path.join(folder, "aot_17m"),
+           "dyn": os.path.join(folder, "model_17m_dyn_aoti.pt2"),
+           "w24": os.path.join(folder, "model_w24.pt2")}
+    try:
+        t0 = time.perf_counter()
+        ex.main(["--model_id", MODEL_17M, "--local_model_dir", models,
+                 "--out", out["pt2"], "--aot_dir", out["aot_dir"],
+                 "--aot_buckets", ",".join(map(str, EXPORT_BUCKETS)),
+                 "--frames", str(EXPORT_FRAMES)])
+        out["cli_17m_s"] = time.perf_counter() - t0
+        program = torch.export.load(out["pt2"])
+        with matmul_precision("high", "cuda"), torch._inductor.config.patch(
+                {"cpp.cxx": (None, runtime_build.openmp_cxx())}):
+            torch._inductor.aoti_compile_and_package(
+                program, package_path=out["dyn"])
+        t0 = time.perf_counter()
+        ex.main(["--model_id", MODEL_W24, "--local_model_dir", models,
+                 "--out", out["w24"], "--frames", str(EXPORT_FRAMES)])
+        out["cli_w24_s"] = time.perf_counter() - t0
+    finally:
+        ex.export_model = export_model
+        torch._inductor.aoti_compile_and_package = compile_
+    out.update(took)
+    for key in ("pt2", "w24"):
+        with open(out[key] + ".json") as f:
+            out[f"{key}_meta"] = json.load(f)
+    with open(os.path.join(out["aot_dir"], "aot.json")) as f:
+        out["aot_meta"] = json.load(f)
+    out["sizes_mb"] = {k: os.path.getsize(p) / 2**20 for k, p in (
+        ("pt2", out["pt2"]), ("dyn", out["dyn"]), ("w24", out["w24"]),
+        *((f, os.path.join(out["aot_dir"], f))
+          for f in sorted(os.listdir(out["aot_dir"])) if f.endswith(".pt2")))}
+    builder.join()
+    if "error" in built:
+        raise RuntimeError(f"native runtime build: {built['error']}")
+    out["native_build_s"], out["native_dir"] = built["s"], built["dir"]
+    return out
+
+
+def _export_check(folder: str, models: str, out: dict, exact: str) -> tuple:
+    """Part 2 of ``export_child``: the native CLI over the SV utterances,
+    --engine aot on the buckets and --engine bridge on the 17.8M
+    checkpoint; the aot engine's embeddings against the port's Python path
+    with the same chunk plan, the bridge engine's against ``exact`` (the SV
+    phase's ``extract --mode exact``); the .pt2 at batch 1 and 7, each
+    bucket's package at batch 1 and the dynamic package at batch 1 and 7
+    against the eager port, K2's launches counted over these calls (7 a
+    call, K1 none)."""
+    import torch
+
+    from speaker3d_tpu_torch.cli.export_speaker_embedding import load_exported
+    from speaker3d_tpu_torch.cli.registry import load_pretrained
+    from speaker3d_tpu_torch.eval.chunking import embed_mean_over_plan, plan_chunks
+    from speaker3d_tpu_torch.eval.embedding import build_embedding_fn, matmul_precision
+    from speaker3d_tpu_torch.utils.fileio import write_wav
+
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):  # the wall of each part
+        now = time.perf_counter()
+        steps[name], t_step[0] = now - t_step[0], now
+
+    exe = os.path.join(out["native_dir"], "extract_speaker_embedding")
+    sv, wavs = os.path.join(folder, "sv"), sv_wavs()
+    os.makedirs(sv)
+    scp = os.path.join(sv, "wav.scp")
+    with open(scp, "w") as f:
+        for utt, wav in wavs.items():
+            write_wav(os.path.join(sv, f"{utt}.wav"), wav, FS)
+            f.write(f"{utt} {os.path.join(sv, utt)}.wav\n")
+    native = {
+        "aot": _native(exe, "aot", scp, os.path.join(folder, "emb_aot"),
+                       out["aot_dir"]),
+        "bridge": _native(exe, "bridge", scp,
+                          os.path.join(folder, "emb_bridge"), MODEL_17M,
+                          ["--local_model_dir", models, "--repo_root",
+                           ROOT])}
+    step("native")
+    stats = {}
+    model = load_pretrained(MODEL_17M, models).cuda().eval()
+    embed = build_embedding_fn(model, device="cuda", precision="high")
+    buckets = out["aot_meta"]["buckets"]
+    plan_buckets = [b["samples"] for b in buckets]
+    want_aot = {u: embed_mean_over_plan(embed, w, plan_chunks(
+        len(w), plan_buckets, 90 * FS)) for u, w in wavs.items()}
+    stats["native_aot_min_cosine"] = _min_cosine(
+        _read_embs(native["aot"]["out_dir"]), want_aot,
+        "native aot vs the port's plan")
+    stats["native_bridge_min_cosine"] = _min_cosine(
+        _read_embs(native["bridge"]["out_dir"]), _finite_store(exact),
+        "native bridge vs extract exact")
+    chunks = sum(len(plan_chunks(len(w), plan_buckets, 90 * FS))
+                 for w in wavs.values())
+    if native["aot"]["k2"] != 7 * chunks or native["bridge"]["k2"] != 0:
+        raise AssertionError(f"native launches: aot {native['aot']['k2']} "
+                             f"(want 7 x {chunks} chunks), bridge "
+                             f"{native['bridge']['k2']} (its kernel runs in "
+                             "the embedded interpreter)")
+    step("native_checks")
+
+    programs = {"pt2": load_exported(out["pt2"]),
+                "dyn_aoti": torch._inductor.aoti_load_package(out["dyn"])}
+    for b in buckets:
+        programs[f"aoti_f{b['frames']}"] = torch._inductor.aoti_load_package(
+            os.path.join(out["aot_dir"], f"model_f{b['frames']}.pt2"))
+    step("load_programs")
+    rng = np.random.default_rng(27)
+    calls = []  # (name, program, features)
+    for name, prog in programs.items():
+        frames = (int(name[len("aoti_f"):]) if name.startswith("aoti_f")
+                  else EXPORT_FRAMES)
+        for b in ((1,) if name.startswith("aoti_f") else EXPORT_BATCHES):
+            feats = torch.from_numpy(rng.standard_normal(
+                (b, frames, 80)).astype(np.float32)).cuda()
+            calls.append((f"{name} [{b}, {frames}, 80]", prog, feats))
+    results = []
+    with torch.inference_mode(), matmul_precision("high"):
+        _, k1, k2 = _counted_result(lambda: [results.append(prog(x))
+                                             for _, prog, x in calls])
+        for (name, _, x), res in zip(calls, results):
+            res = res[0] if isinstance(res, (list, tuple)) else res
+            cos, diff = _row_cosines(res.cpu().numpy(),
+                                     model(x).cpu().numpy())
+            stats[f"{name} min_cosine"], stats[f"{name} max_abs"] = cos, diff
+            if not (bool(torch.isfinite(res).all()) and cos >= EXPORT_COS):
+                raise AssertionError(f"export {name}: min cosine {cos} "
+                                     f"against eager")
+    if k1 != 0 or k2 != 7 * len(calls):
+        raise AssertionError(f"export: launches K1 {k1} K2 {k2} over "
+                             f"{len(calls)} calls; want 0 and 7 each")
+    step("program_checks")
+    stats.update(k2=k2, native_k2=native["aot"]["k2"], steps_s=steps,
+                 native={e: {k: v for k, v in r.items() if k != "out_dir"}
+                         for e, r in native.items()})
+    return stats, model, programs
+
+
+def export_child(folder: str, models: str) -> dict:
+    """The export phase's work beside the other phases, paced by the lines
+    the script sends on stdin: the compiles and the native build
+    (``_export_compile``, Inductor's compile threads capped) at once; on
+    "go <exact store>", sent while the card holds no large run, the native
+    runs and every check (``_export_check``); on "time", sent when the
+    card is otherwise idle, the .pt2, the dynamic package and eager timed at
+    [64, 300, 80]."""
+    import torch
+
+    from speaker3d_tpu_torch.eval.embedding import matmul_precision
+
+    t0 = time.perf_counter()
+    out = _export_compile(folder, models)
+    out["compile_s"] = time.perf_counter() - t0
+    word, exact = sys.stdin.readline().split()
+    if word != "go":
+        raise RuntimeError(f"export child: expected 'go', got {word!r}")
+    t0 = time.perf_counter()
+    stats, model, programs = _export_check(folder, models, out, exact)
+    out.update(stats, check_s=time.perf_counter() - t0)
+    if sys.stdin.readline().strip() != "time":
+        raise RuntimeError("export child: expected 'time'")
+    rng = np.random.default_rng(28)
+    timed = torch.from_numpy(rng.standard_normal(
+        (EXPORT_TIMED, EXPORT_FRAMES, 80)).astype(np.float32)).cuda()
+    with torch.inference_mode(), matmul_precision("high"):
+        for name, fn in (("eager", model), ("pt2", programs["pt2"]),
+                         ("dyn_aoti", programs["dyn_aoti"]),
+                         ("eager", model)):
+            out[f"{name}_ms"] = min(out.get(f"{name}_ms", float("inf")),
+                                    cuda_ms(lambda: fn(timed), warmup=1,
+                                            iters=1, runs=3))
+    return out
+
+
+def _export_start(work: str, models: str):
+    """Start ``export_child`` once the pipeline phase has written the
+    checkpoints."""
+    folder = os.path.join(work, "export")
+    os.makedirs(folder)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _EXPORT_RUNNER, ROOT, folder, models],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                           TORCHINDUCTOR_COMPILE_THREADS=str(
+                               EXPORT_COMPILE_THREADS)),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def _export_go(started, sv: dict) -> None:
+    """Let ``export_child`` run the native CLIs and its checks (after the
+    trainers, whose peaks fill the card)."""
+    try:
+        started[0].stdin.write(f"go {sv['stores']['exact']}\n")
+        started[0].stdin.flush()
+    except BrokenPipeError:  # the child failed: phase_export says why
+        pass
+
+
+def phase_export(started, smi: str) -> dict:
+    """Collect ``export_child``: the timings on an otherwise idle card,
+    then its numbers; every check ran in the child."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate("time\n", timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    got = re.search(r"\[export child\] (\{.*\})", out)
+    if proc.returncode != 0 or got is None:
+        raise AssertionError(f"the export child failed (rc {proc.returncode})"
+                             f":\n{out[-3000:]}\n{err[-5000:]}")
+    child = json.loads(got.group(1))
+    for key in ("pt2_meta", "w24_meta"):
+        if child[key].get("dynamic_batch") is not True:
+            raise AssertionError(f"export: {key} {child[key]}: the batch "
+                                 "axis is not dynamic")
+    buckets = child["aot_meta"]["buckets"]
+    if [b["seconds"] for b in buckets] != list(EXPORT_BUCKETS):
+        raise AssertionError(f"export: aot.json buckets {buckets}")
+    stats = {k: v for k, v in child.items()
+             if k not in ("pt2", "aot_dir", "dyn", "w24", "native_dir",
+                          "k2", "native_k2")}
+    stats["child_wall_s"] = time.perf_counter() - t0
+    log(f"[export] {smi}: {json.dumps(stats)}")
+    return {"k1": 0, "k2": child["k2"], "native_k1": 0,
+            "native_k2": child["native_k2"], "stats": stats}
+
+
 def _reap_children() -> None:
     for proc in _CHILDREN:
         if proc.poll() is None:
@@ -6195,6 +6550,7 @@ def _main(device, timed, phase_s, t_script) -> int:
     with tempfile.TemporaryDirectory(prefix="s3d_chip_smoke_") as work:
         pipe = timed("pipeline", phase_pipeline, work)
         models, smi = pipe["models"], device["smi"]
+        export_started = _export_start(work, models)
         sv = timed("sv", phase_sv, work, models, smi)
         backbones = timed("backbones", phase_backbones, work, models, sv)
         server = timed("server", phase_server, work, models, smi)
@@ -6212,8 +6568,10 @@ def _main(device, timed, phase_s, t_script) -> int:
         video = timed("video", phase_video, work, models, smi)
         asd = timed("asd", phase_asd, video.pop("asd_started"),
                     video.pop("asd_data"), smi)
+        _export_go(export_started, sv)
         drivers = timed("drivers", phase_drivers, work, models, smi)
         sem = timed("semantic", phase_semantic, work, smi)
+        export = timed("export", phase_export, export_started, smi)
     lengths = sorted(set(pipe["lengths"]) | {SV_CHUNK})
     k1 = timed("k1", phase_k1, lengths, pipe["main_len"],
                train["stats"]["batch"], dnn["k1_shapes"] + asr["k1_shapes"])
@@ -6250,7 +6608,9 @@ def _main(device, timed, phase_s, t_script) -> int:
                                  "asd_train": asd[key],
                                  "drivers": drivers[key],
                                  "bf16_embed": bf16[key], "int8": int8[key],
-                                 "semantic": sem[key]}
+                                 "semantic": sem[key],
+                                 "export": export[key],
+                                 "native": export[f"native_{key}"]}
         k["launches"] = sum(k["launches_by_path"].values())
     # K2's bf16 variant runs on the bf16 embed path only (every other path
     # above checked that it launched none)
@@ -6278,6 +6638,7 @@ def _main(device, timed, phase_s, t_script) -> int:
                     "bf16_embed": {m: {str(k): v for k, v in r.items()}
                                    for m, r in bf16["runs"].items()},
                     "int8": int8["runs"], "semantic": sem["stats"],
+                    "export": export["stats"],
                     "phase_s": phase_s,
                     "script_s": time.perf_counter() - t_script}))
     log(f"[script] {time.perf_counter() - t_script:.1f} s")

@@ -21,6 +21,7 @@ they end as a plain step leaves them.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -32,7 +33,7 @@ from speaker3d_tpu_torch.models.common import (
     trunk_freq)
 from speaker3d_tpu_torch.models.pooling import get_pooling, pooling_output_mult
 from speaker3d_tpu_torch.ops.kernels.res2_block_kernel import (
-    fold_res2_block, res2_block)
+    FIELDS, FoldedRes2Block, fold_res2_block, res2_block)
 
 
 class AFF(nn.Module):
@@ -85,6 +86,7 @@ class BasicBlockERes2NetV2(nn.Module):
                 batch_norm2d(expansion * planes))
         self.use_kernel = True
         self._folds = {}
+        self._frozen = False
 
     @property
     def fusable(self) -> bool:
@@ -94,14 +96,36 @@ class BasicBlockERes2NetV2(nn.Module):
         """The BN-folded weights in ``dtype``, folded once per loaded
         weights, device and dtype (``load_state_dict``, ``train()`` and a
         move or cast of the module drop them)."""
+        if self._frozen:
+            return FoldedRes2Block(*(getattr(self, f"fold_{name}")
+                                     for name in FIELDS))
         key = (self.conv1.weight.device, dtype)
-        if key not in self._folds:
-            with torch.no_grad():
-                self._folds[key] = fold_res2_block(
-                    {**dict(self.named_parameters()),
-                     **dict(self.named_buffers())}, eps=self.bn1.eps,
-                    dtype=dtype)
-        return self._folds[key]
+        if key in self._folds:
+            return self._folds[key]
+        with torch.no_grad():
+            fold = fold_res2_block(
+                {**dict(self.named_parameters()),
+                 **dict(self.named_buffers())}, eps=self.bn1.eps,
+                dtype=dtype)
+        if torch._guards.detect_fake_mode() is None:
+            # a trace's fake parameters never enter the cache
+            self._folds[key] = fold
+        return fold
+
+    def freeze_folds(self, dtype: torch.dtype = torch.float32) -> None:
+        """Hold the folds in ``dtype``, computed now, as non-persistent
+        buffers (``fold_<field>``) that ``folded`` returns until
+        ``thaw_folds``."""
+        fold = self.folded(dtype)
+        for name in FIELDS:
+            self.register_buffer(f"fold_{name}", getattr(fold, name),
+                                 persistent=False)
+        self._frozen = True
+
+    def thaw_folds(self) -> None:
+        for name in FIELDS:
+            delattr(self, f"fold_{name}")
+        self._frozen = False
 
     def train(self, mode: bool = True):
         self._folds = {}
@@ -182,6 +206,24 @@ class ERes2NetV2(nn.Module):
         out4 = remat_blocks(self.layer4, out3, self.remat)
         fuse34 = self.fuse34(out4, self.layer3_ds(out3))
         return embedding_layers(self, self.pool(fuse34))
+
+
+@contextlib.contextmanager
+def frozen_folds(model: nn.Module, dtype: torch.dtype = torch.float32):
+    """Freeze the folds of every Res2 block of ``model`` that runs the
+    kernel (``BasicBlockERes2NetV2.freeze_folds``) for the block, so a trace
+    of the model takes them as buffers and not as arithmetic on its fake
+    parameters; thaw them afterwards."""
+    blocks = [m for m in model.modules()
+              if isinstance(m, BasicBlockERes2NetV2) and m.fusable
+              and m.use_kernel]
+    for block in blocks:
+        block.freeze_folds(dtype)
+    try:
+        yield blocks
+    finally:
+        for block in blocks:
+            block.thaw_folds()
 
 
 def eres2netv2_w24s4ep4(**kw) -> ERes2NetV2:

@@ -19,15 +19,19 @@ kernel serves:
   s2 + y1, y2 and the output (``res2_block_plain`` does the same on the
   CPU).
 
-``res2_block`` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; ``res2_block.launches`` counts the float32
+``res2_block`` calls the registered operator ``s3d::res2_block``
+(``SCHEMA``): its CPU implementation is the plain version, its CUDA one
+launches the kernel, and its fake one gives the output's shape, so eager
+calls, ``torch.export`` programs and AOTInductor packages all reach the
+same kernel (the native runtime registers the same schema in C++,
+``runtime/src/res2_op.cpp``). ``res2_block.launches`` counts the float32
 launches and ``res2_block.launches_bf16`` the bfloat16 ones.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Mapping, Optional
 
 import torch
@@ -240,17 +244,50 @@ def res2_block_cuda(x, p: FoldedRes2Block, stride: int = 1):
     return out
 
 
+# The operator's schema: x, the fields of FoldedRes2Block in their order,
+# the stride. runtime/src/res2_op.cpp registers the same string.
+SCHEMA = ("res2_block(Tensor x, Tensor w1, Tensor b1, Tensor wc1, Tensor bc1, "
+          "Tensor wc2, Tensor bc2, Tensor w3, Tensor b3, Tensor? wsc, "
+          "Tensor p_w1, Tensor p_wc1, Tensor p_wc2, Tensor p_w3, "
+          "Tensor? p_wsc, int stride) -> Tensor")
+FIELDS = tuple(f.name for f in fields(FoldedRes2Block))
+
+_LIB = torch.library.Library("s3d", "DEF")
+_LIB.define(SCHEMA)
+
+
+def _op_cpu(x, *args):
+    return res2_block_plain(x, FoldedRes2Block(*args[:-1]), args[-1])
+
+
+def _op_cuda(x, *args):
+    return res2_block_cuda(x, FoldedRes2Block(*args[:-1]), args[-1])
+
+
+def _op_fake(x, *args):
+    stride, w3 = args[-1], args[FIELDS.index("w3")]
+    batch, _, fin, tin = x.shape
+    return x.new_empty((batch, w3.shape[0], (fin + stride - 1) // stride,
+                        (tin + stride - 1) // stride))
+
+
+_LIB.impl("res2_block", _op_cpu, "CPU")
+_LIB.impl("res2_block", _op_cuda, "CUDA")
+torch.library.register_fake("s3d::res2_block", _op_fake, lib=_LIB)
+
+
 def res2_block(x, p: FoldedRes2Block, stride: int = 1):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor; x
-    float32 or bfloat16, the fold's dtype."""
+    """``s3d::res2_block``: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor; x float32 or bfloat16, the fold's dtype."""
     if x.dtype not in DTYPES:
         raise ValueError(f"res2 block: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if x.is_cuda:
-        return res2_block_cuda(x, p, stride)
-    if x.device.type != "cpu":
+    if x.dtype != p.dtype:
+        raise ValueError(f"res2 block: x is {x.dtype}, the fold {p.dtype}")
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"res2 block: unsupported device {x.device}")
-    return res2_block_plain(x, p, stride)
+    return torch.ops.s3d.res2_block(
+        x, *(getattr(p, name) for name in FIELDS), stride)
 
 
 res2_block.launches = 0       # float32 launches

@@ -1435,3 +1435,67 @@ def test_semantic_train_step_on_the_card_matches_the_cpu(cuda, task):
     d = semantic_step_diffs(out["cuda"][1], out["cpu"][1])
     assert d["median"] <= 1e-4 and d["worst"] <= 1e-2, d
     assert d["held_of_top"] <= 1e-5, d
+
+
+def _plain_blocks(model, x):
+    """``model(x)`` with every Res2 block through the plain version."""
+    from speaker3d_tpu_torch.models import eres2netv2
+
+    kernel, eres2netv2.res2_block = eres2netv2.res2_block, rk.res2_block_plain
+    try:
+        with torch.inference_mode(), matmul_precision("high"):
+            return model(x)
+    finally:
+        eres2netv2.res2_block = kernel
+
+
+def _export_case(cuda, seed):
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16),
+                       seed).to(cuda)
+    gen = torch.Generator().manual_seed(seed)
+    return model, lambda b, t: torch.randn((b, t, 80), generator=gen).to(cuda)
+
+
+def test_res2_operator_through_an_exported_program_on_the_card(cuda,
+                                                                tmp_path):
+    """The dynamic-batch .pt2 traced on the card: its s3d::res2_block nodes
+    launch K2 (4 a call at any batch), against the plain blocks."""
+    from speaker3d_tpu_torch.cli import export_speaker_embedding as ex
+
+    model, feats = _export_case(cuda, 3)
+    blob, meta = ex.export_model(model, frames=200, device=cuda)
+    assert meta["dynamic_batch"] and meta["device"] == "cuda"
+    path = tmp_path / "m.pt2"
+    path.write_bytes(blob)
+    run = ex.load_exported(str(path))
+    for batch in (1, 5):
+        x = feats(batch, 200)
+        k2 = rk.res2_block.launches
+        got = run(x)
+        torch.cuda.synchronize()
+        assert rk.res2_block.launches == k2 + 4
+        torch.testing.assert_close(got, _plain_blocks(model, x), rtol=1e-3,
+                                   atol=1e-3)
+
+
+def test_res2_operator_through_an_aoti_package_on_the_card(cuda, tmp_path):
+    """An AOTInductor package compiled on the card, loaded in Python: the
+    proxy executor calls s3d::res2_block, which launches K2. The package's
+    cuDNN convolutions follow the process's TF32 flags (the native engine
+    sets them from aot.json), so it runs with TF32 off."""
+    from speaker3d_tpu_torch.cli import export_speaker_embedding as ex
+
+    model, feats = _export_case(cuda, 4)
+    meta = ex.export_aot_artifact(model, str(tmp_path), frames=150,
+                                  device=cuda)
+    assert meta["device"] == "cuda" and meta["frames"] == 150
+    runner = torch._inductor.aoti_load_package(str(tmp_path / "model.pt2"))
+    x = feats(1, 150)
+    k2 = rk.res2_block.launches
+    with torch.inference_mode(), matmul_precision("high"):
+        got = runner(x)
+    torch.cuda.synchronize()
+    got = got[0] if isinstance(got, (list, tuple)) else got
+    assert rk.res2_block.launches == k2 + 4
+    torch.testing.assert_close(got, _plain_blocks(model, x), rtol=1e-3,
+                               atol=1e-3)

@@ -16,6 +16,10 @@
   only in the semantic CLI's ``--pretrained`` tokenizer.
 - The entry points raise without a CUDA device unless the caller passes
   ``device="cpu"``: nothing falls back to the CPU on its own.
+- The port's native runtime (``speaker3d_tpu_torch/runtime``) includes
+  nothing from the root ``runtime/`` tree (only its own ``s3d/`` headers,
+  the standard library, torch's, CUDA's and Python's) and names no module
+  of the JAX package.
 """
 
 import ast
@@ -93,7 +97,9 @@ def test_package_has_the_slice_modules():
                  "cli.run_diarization_simple", "cli.run_diarization_on_dir",
                  "cli.run_diarization_speech_estimate", "cli.train_para",
                  "compat.funasr_convert", "semantic.bert",
-                 "data.semantic_prep", "cli.semantic"):
+                 "data.semantic_prep", "cli.semantic",
+                 "cli.export_speaker_embedding", "runtime_bridge",
+                 "runtime.build"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -289,3 +295,58 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     embed = build_embedding_fn(model, device="cpu")
     assert embed(torch.zeros((2, 8000))).shape == (2, 192)
     assert probe_ops.main(["--device", "cpu"]) == 0
+
+
+def test_export_and_the_bridge_default_to_cuda(no_cuda, tmp_path):
+    from speaker3d_tpu_torch import runtime_bridge
+    from speaker3d_tpu_torch.cli import export_speaker_embedding
+    from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runtime_bridge.init(str(tmp_path / "exp"))
+    assert export_speaker_embedding.get_args(["--out", "m.pt2"]).device == \
+        "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_speaker_embedding.main(["--model_id", "x", "--out", "m.pt2"])
+    model = ERes2NetV2(num_blocks=(1, 1, 1, 1), m_channels=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_speaker_embedding.export_model(model, frames=20)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_speaker_embedding.export_aot_artifact(model, str(tmp_path))
+
+
+RUNTIME_DIR = os.path.join(PKG_DIR, "runtime")
+# the headers the port's C++ may include besides its own s3d/ ones
+SYSTEM_INCLUDES = ("Python.h", "ATen/", "c10/", "torch/")
+
+
+def test_native_runtime_stands_alone():
+    """Every #include names the port's own s3d/ headers (each present
+    under runtime/include), a <system> header or torch's, CUDA's or
+    Python's; no source names the JAX package's bridge or PJRT; the build
+    puts no root runtime/ directory on the include path."""
+    from speaker3d_tpu_torch.runtime import build
+
+    own = set(os.listdir(os.path.join(RUNTIME_DIR, "include", "s3d")))
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(RUNTIME_DIR)
+               for f in fs if f.endswith((".cpp", ".h"))]
+    assert len(sources) >= 13
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert "speaker3d_tpu.runtime_bridge" not in text, path
+        assert "pjrt_c_api" not in text and "PjrtEngine" not in text, path
+        for line in text.splitlines():
+            if not line.startswith("#include"):
+                continue
+            name = line.split(None, 1)[1].strip()
+            if name.startswith('"s3d/'):
+                assert name[len('"s3d/'):-1] in own, (path, line)
+            else:
+                assert name.startswith("<"), (path, line)
+                assert ".." not in name, (path, line)
+    root_runtime = os.path.join(ROOT, "runtime")
+    for cuda in (False, True):
+        cflags, link = build._flags(cuda)
+        assert not any(root_runtime in flag.replace(RUNTIME_DIR, "")
+                       for flag in cflags + link["torch"] + link["python"])
