@@ -40,7 +40,12 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
    and ``infer_sv`` ones (each whole utterance at batch 1), and one
    [64, 160000] batch; ``infer_sv_batch`` against the chunked ``extract``
    run, each printed score against the host's float64 cosine to 1e-5; the
-   corpus run's throughput in audio-seconds per second;
+   corpus run's throughput in audio-seconds per second; then the mesh
+   paths at world size 1 over NCCL (one card takes one NCCL rank):
+   ``build_sharded_embedding_fn`` on that batch (K1 once and K2 7 times,
+   counted as the ``sharded_embed`` path) against ``build_embedding_fn``
+   (max abs 1e-5), and ``pairwise_cosine_device(mesh=...)`` of its
+   embeddings against ``mesh=None`` (max abs 1e-6);
 5. the registry's other backbones at registry width on seeded
    reference-named checkpoints: CAM++ (192 and 512), ERes2Net base, large
    and huge, ECAPA-TDNN (1024 x 4, 3072); each through ``extract`` on the
@@ -99,7 +104,8 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     eigh) and 5,000 (LOBPCG): the same partition, both timed; UMAP+HDBSCAN
     (native, the layout on the card) at N = 2,000: the 12 speakers with at
     most 1% noise, the layout and HDBSCAN timed;
-14. the trainer: ``cli.train`` in a process of its own on
+14. the trainer: ``cli.train`` in a process of its own, in a process group
+    of one over NCCL through ``init_multihost``'s environment, on
     ``configs/eres2netv2.yaml`` as it is (the 17.8M ERes2NetV2, batch 256,
     3 s crops, speed perturbation, augmentation at 0.6), overriding only the
     paths, one epoch and ``remat=true``, on a seeded corpus of 64 speakers x
@@ -108,8 +114,10 @@ PyTorch built for CUDA. Imports no JAX. Phases, any failure exits non-zero:
     time, samples/s, the epoch's data-wait share, peak memory, launches (K1
     once per step, K2 never: training takes the unfused blocks); one step
     at B = 64 from the same weights and batch through K1 against the plain
-    fbank (loss to rtol 1e-3, parameters to 1e-5) and with remat against
-    without (loss and running statistics to 1e-5); then ``extract
+    fbank (loss to rtol 1e-3, parameters to 1e-3), with remat against
+    without (loss and running statistics to 1e-5), and on a 1 x 1 mesh of
+    a world-1 NCCL group against no group (loss to 1e-5, parameters to
+    1e-3); then ``extract
     --exp_dir`` on the trained experiment over the SV utterances (K1 and K2
     launched, each utterance against its plan through the plain functions
     at cosine >= 0.9999). K1 (item 7) is also held at the trainer's [256,
@@ -1171,6 +1179,48 @@ def synth_corpus(folder: str, n_utts: int, seconds: float, seed: int) -> str:
     return scp
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _world1_env() -> dict:
+    """``init_multihost``'s environment for a process group of one process
+    (one card admits one NCCL rank)."""
+    return {"SPEAKER3D_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+            "SPEAKER3D_NUM_PROCESSES": "1", "SPEAKER3D_PROCESS_ID": "0"}
+
+
+class _NcclWorld1:
+    """``with _NcclWorld1() as mesh``: this process alone in a process group
+    over NCCL, started by ``init_multihost``, and its 1 x 1 mesh on the
+    card; the group destroyed on the way out."""
+
+    def __enter__(self):
+        import torch
+
+        from speaker3d_tpu_torch.parallel.mesh import init_multihost, make_mesh
+
+        env = _world1_env()
+        if not init_multihost(env["SPEAKER3D_COORDINATOR_ADDRESS"], 1, 0,
+                              device="cuda"):
+            raise AssertionError("init_multihost started no process group")
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            torch.distributed.destroy_process_group()
+            raise AssertionError(f"process group backend {backend}, want nccl")
+        return make_mesh(device="cuda")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.distributed.destroy_process_group()
+        return False
+
+
 def _counted(fn) -> tuple:
     """Run ``fn`` with the K1 and K2 launch counts set to 0 just before;
     (K1, K2) launches read just after (``_counted3`` also K2's bf16
@@ -1374,6 +1424,8 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
     if not bool(torch.isfinite(got).all()) or cos < 0.9999:
         raise AssertionError(f"sv [{BATCH}, {SV_CHUNK}] batch kernel vs "
                              f"plain: min cosine {cos}")
+    sharded = _sv_mesh_checks(model, batch, got)
+    stats.update(sharded)
 
     # throughput: the corpus run, every batch full
     audio_s = SV_CORPUS_UTTS * SV_CORPUS_SECONDS
@@ -1391,8 +1443,50 @@ def phase_sv(work: str, models: str, smi: str) -> dict:
         f"{cos:.7f}), {stats['corpus_embed_share']:.1%} of the run's wall")
     return {"k1": sum(r["k1"] for r in runs.values()),
             "k2": sum(r["k2"] for r in runs.values()),
+            "sharded_k1": sharded["sharded_embed_k1"],
+            "sharded_k2": sharded["sharded_embed_k2"],
             "runs": runs, "stats": stats, "scp": scp, "wavs": wavs,
             "stores": out}
+
+
+def _sv_mesh_checks(model, batch, want) -> dict:
+    """The mesh paths at world size 1 over NCCL on the 17.8M model:
+    ``build_sharded_embedding_fn`` on the [64, 160000] batch (K1 once and K2
+    7 times on this rank, counted from 0) against ``build_embedding_fn``'s
+    ``want``, and ``pairwise_cosine_device(mesh=...)`` of its embeddings
+    against ``mesh=None``."""
+    import torch
+
+    from speaker3d_tpu_torch.eval.embedding import build_sharded_embedding_fn
+    from speaker3d_tpu_torch.eval.scoring import pairwise_cosine_device
+
+    t0 = time.perf_counter()
+    with _NcclWorld1() as mesh:
+        embed = build_sharded_embedding_fn(model, None, mesh,
+                                           precision="highest")
+        got, k1, k2 = _counted_result(lambda: embed(batch))
+        emb = got.cpu().numpy()
+        aff = pairwise_cosine_device(emb, mesh=mesh)
+    aff_want = pairwise_cosine_device(emb, device="cuda")
+    out = {"sharded_embed_k1": k1, "sharded_embed_k2": k2,
+           "sharded_embed_max_abs_vs_embed": float(
+               (got - want).abs().max()),
+           "mesh_affinity_max_abs_vs_none": float(np.abs(aff - aff_want).max()),
+           "mesh_checks_s": time.perf_counter() - t0}
+    log(f"[sv mesh, world 1 over NCCL] build_sharded_embedding_fn on "
+        f"[{BATCH}, {SV_CHUNK}]: launches K1 {k1} K2 {k2}, max abs "
+        f"{out['sharded_embed_max_abs_vs_embed']:.3g} against "
+        f"build_embedding_fn (<= 1e-5); pairwise_cosine_device(mesh=) "
+        f"[{BATCH}, {BATCH}] max abs "
+        f"{out['mesh_affinity_max_abs_vs_none']:.3g} against mesh=None "
+        f"(<= 1e-6); {out['mesh_checks_s']:.1f} s")
+    if (k1, k2) != (1, 7) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"sharded embed: launches K1 {k1} K2 {k2}, "
+                             f"want 1 and 7")
+    if not (out["sharded_embed_max_abs_vs_embed"] <= 1e-5
+            and out["mesh_affinity_max_abs_vs_none"] <= 1e-6):
+        raise AssertionError(f"the mesh paths at world 1: {out}")
+    return out
 
 
 # the registry's other backbones at their registry geometry, and the K2
@@ -2131,12 +2225,17 @@ _TRAIN_RUNNER = (
     "fk.fbank_features.launches = rk.res2_block.launches = 0\n"
     "cli.main(sys.argv[2:])\n"
     "torch.cuda.synchronize()\n"
+    "dist = torch.distributed\n"
+    "group = {'backend': dist.get_backend(), 'world': dist.get_world_size()}"
+    " if dist.is_initialized() else None\n"
+    "if group: dist.destroy_process_group()\n"
     "extra = {'encoder_sha_built': fronts[0][1], 'encoder_sha_after':"
     " digest(fronts[0][0]), 'encoder_trainable': sum(p.requires_grad"
     " for p in fronts[0][0].parameters())} if fronts else {}\n"
     "print('[train launches] ' + json.dumps({'k1': fk.fbank_features.launches,"
     " 'k2': rk.res2_block.launches, 'max_memory_allocated':"
-    " torch.cuda.max_memory_allocated(), **extra}), flush=True)\n")
+    " torch.cuda.max_memory_allocated(), 'group': group, **extra}),"
+    " flush=True)\n")
 
 
 def train_corpus(folder: str, seed: int = 300) -> tuple:
@@ -2178,12 +2277,14 @@ def _train_cli(folder: str, csv: str, noise, rir,
                config: str = TRAIN_CONFIG, tag: str = "eres2netv2",
                extra: tuple = ("--remat=true",), epochs: int = 1,
                cli: str = "speaker3d_tpu_torch.cli.train",
-               batches: tuple = TRAIN_BATCHES) -> dict:
+               batches: tuple = TRAIN_BATCHES, env: dict = None) -> dict:
     """The trainer ``cli`` (cli.train) on ``config`` as it is, overriding
     only the paths (noise and RIR lists unless None), the epochs and
     ``extra``; at the config's batch, or the largest of ``batches``' cuts
-    that fits on the card. Step times of the last epoch (warm), the first
-    step of the first, the data-wait share over all epochs."""
+    that fits on the card; ``env`` added to the process's environment (a
+    process group's, ``_world1_env``). Step times of the last epoch (warm),
+    the first step of the first, the data-wait share over all epochs, the
+    process group the CLI ran in."""
     import torch
 
     torch.cuda.empty_cache()
@@ -2198,8 +2299,8 @@ def _train_cli(folder: str, csv: str, noise, rir,
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-c", _TRAIN_RUNNER, cli] + argv, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-            text=True, timeout=900)
+            env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
+            capture_output=True, text=True, timeout=900)
         wall = time.perf_counter() - t0
         if out.returncode == 0:
             break
@@ -2240,7 +2341,7 @@ def _train_cli(folder: str, csv: str, noise, rir,
              "data_wait_share": wait / epoch_s,
              "max_memory_allocated_gib": counts["max_memory_allocated"] / 2**30,
              "k1": counts["k1"], "k2": counts["k2"], "avg_loss": loss,
-             "process_wall_s": wall,
+             "process_wall_s": wall, "group": counts["group"],
              **{k: v for k, v in counts.items() if k.startswith("encoder_")}}
     ckpt = os.path.join(exp, "models", f"CKPT-EPOCH-{epochs}-00")
     if not (os.path.isdir(ckpt) and np.isfinite(loss)):
@@ -2289,9 +2390,9 @@ def _plain_train_fbank(fb):
 
 
 def _one_step(base, cfg, batch, feature_fn, remat: bool,
-              compute_dtype: str = "float32") -> tuple:
-    """One SGD step of a copy of ``base``: loss, state_dict, K1 launches,
-    peak GiB."""
+              compute_dtype: str = "float32", mesh=None) -> tuple:
+    """One SGD step of a copy of ``base`` (on ``mesh`` when given): loss,
+    state_dict, K1 launches, peak GiB."""
     import copy
 
     import torch
@@ -2301,8 +2402,10 @@ def _one_step(base, cfg, batch, feature_fn, remat: bool,
 
     model = copy.deepcopy(base)
     cfg = cfg._replace(remat=remat, compute_dtype=compute_dtype)
-    state = sv_train.init_sv_train_state(model, cfg, seed=5, device="cuda")
-    step = sv_train.make_sv_train_step(model, cfg, feature_fn=feature_fn)
+    state = sv_train.init_sv_train_state(model, cfg, seed=5, device="cuda",
+                                         mesh=mesh)
+    step = sv_train.make_sv_train_step(model, cfg, feature_fn=feature_fn,
+                                       mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     launches = fk.fbank_features.launches
     metrics = step(state, {"wavs": batch["wavs"], "labels": batch["labels"]})
@@ -2331,7 +2434,8 @@ def _update_cosines(sd, want, start, params) -> list:
 
 def _train_step_checks(csv: str) -> dict:
     """One step of the 17.8M model at B = 64 from the same weights and batch:
-    through K1 against the plain fbank, and with remat against without."""
+    through K1 against the plain fbank, with remat against without, and on
+    a 1 x 1 mesh over a world-1 NCCL group against no group."""
     import torch
 
     from speaker3d_tpu_torch.cli.train import build_model
@@ -2350,7 +2454,10 @@ def _train_step_checks(csv: str) -> dict:
     pl_loss, pl_sd, pl_n, _ = _one_step(base, cfg, batch,
                                         _plain_train_fbank(fb), False)
     rm_loss, rm_sd, rm_n, mem_remat = _one_step(base, cfg, batch, fb, True)
-    if (k1_n, pl_n, rm_n) != (1, 0, 1):
+    with _NcclWorld1() as mesh:
+        w1_loss, w1_sd, w1_n, _ = _one_step(base, cfg, batch, fb, False,
+                                            mesh=mesh)
+    if (k1_n, pl_n, rm_n, w1_n) != (1, 0, 1, 1):
         raise AssertionError(f"train step launches K1 {(k1_n, pl_n, rm_n)}; "
                              f"want 1 through K1, 0 through the plain fbank")
 
@@ -2366,6 +2473,9 @@ def _train_step_checks(csv: str) -> dict:
            "remat_vs_plain_loss_rel": abs(rm_loss - k1_loss) / abs(k1_loss),
            "remat_vs_plain_stats_max_abs": _worst(rm_sd, k1_sd, stats_keys),
            "remat_vs_plain_param_max_abs": _worst(rm_sd, k1_sd, params),
+           "world1_vs_none_loss_rel": abs(w1_loss - k1_loss) / abs(k1_loss),
+           "world1_vs_none_param_max_abs": _worst(w1_sd, k1_sd, params),
+           "world1_vs_none_stats_max_abs": _worst(w1_sd, k1_sd, stats_keys),
            "k1_vs_plain_worst_param": name,
            "k1_vs_plain_worst_param_update_max_abs": update,
            "loss": k1_loss, "peak_gib_b64_plain": mem_plain,
@@ -2377,6 +2487,10 @@ def _train_step_checks(csv: str) -> dict:
         torch.testing.assert_close(rm_sd[k], k1_sd[k], rtol=1e-5, atol=1e-5)
     if not out["remat_vs_plain_loss_rel"] <= 1e-5:
         raise AssertionError(f"train step with remat vs without: {out}")
+    if not (out["world1_vs_none_param_max_abs"] <= TRAIN_STEP_PARAM_ATOL
+            and out["world1_vs_none_loss_rel"] <= 1e-5):
+        raise AssertionError(f"train step on a world-1 NCCL mesh vs no "
+                             f"process group: {out}")
     return out
 
 
@@ -2393,9 +2507,15 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
     t0 = time.perf_counter()
     csv, noise, rir = train_corpus(folder)
     corpus_s = time.perf_counter() - t0
-    run = _train_cli(folder, csv, noise, rir)
+    # in a process group of one over NCCL, through init_multihost's
+    # environment: the mesh step's collectives on the card
+    run = _train_cli(folder, csv, noise, rir, env=_world1_env())
+    if run["group"] != {"backend": "nccl", "world": 1}:
+        raise AssertionError(f"cli.train ran in process group {run['group']}; "
+                             f"want NCCL at world size 1")
     log(f"[train] {smi}: cli.train on {TRAIN_CONFIG} (17.8M ERes2NetV2, "
-        f"remat, speed perturbation, aug_prob 0.6), {run['steps']} steps of "
+        f"remat, speed perturbation, aug_prob 0.6; process group "
+        f"{run['group']}), {run['steps']} steps of "
         f"batch {run['batch']}: step {run['step_ms_median']:.1f} ms (median, "
         f"CUDA events; the first {run['first_step_ms']:.1f}), "
         f"{run['samples_per_s']:.1f} samples/s, data_wait_s "
@@ -2416,7 +2536,12 @@ def phase_train(work: str, sv: dict, smi: str) -> dict:
         f"{checks['k1_vs_plain_stats_max_abs']:.3g}; remat vs without: loss "
         f"rel {checks['remat_vs_plain_loss_rel']:.3g}, running stats max abs "
         f"{checks['remat_vs_plain_stats_max_abs']:.3g} (<= 1e-5), parameters "
-        f"max abs {checks['remat_vs_plain_param_max_abs']:.3g}; peak memory "
+        f"max abs {checks['remat_vs_plain_param_max_abs']:.3g}; on a world-1 "
+        f"NCCL mesh vs no process group: loss rel "
+        f"{checks['world1_vs_none_loss_rel']:.3g} (<= 1e-5), parameters max "
+        f"abs {checks['world1_vs_none_param_max_abs']:.3g} (<= "
+        f"{TRAIN_STEP_PARAM_ATOL:g}), running stats max abs "
+        f"{checks['world1_vs_none_stats_max_abs']:.3g}; peak memory "
         f"{checks['peak_gib_b64_plain']:.2f} GiB without remat, "
         f"{checks['peak_gib_b64_remat']:.2f} GiB with")
 
@@ -6585,6 +6710,7 @@ def _main(device, timed, phase_s, t_script) -> int:
 
     for k, key in ((k1, "k1"), (k2, "k2")):
         k["launches_by_path"] = {"diarization": pipe[key], "sv": sv[key],
+                                 "sharded_embed": sv[f"sharded_{key}"],
                                  "backbones": backbones[key],
                                  "server": server[key],
                                  "diarization_clustering": diar_cluster[key],

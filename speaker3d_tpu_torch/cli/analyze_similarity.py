@@ -58,6 +58,8 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
 

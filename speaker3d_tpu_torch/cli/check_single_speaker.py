@@ -90,6 +90,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     model = load_model(args.exp_dir, args.model_id, args.local_model_dir)
     embed_fn = build_embedding_fn(model, device=device, precision="high")

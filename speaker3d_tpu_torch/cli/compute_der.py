@@ -33,6 +33,8 @@ def main(argv=None):
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="the package's device; 'cpu' must be asked for")
     args = p.parse_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     resolve_device(args.device)
 
     ref = load_rttm(args.ref)

@@ -69,6 +69,8 @@ def _plots(scores_dir, name, fnr, fpr, eer, det_plot) -> None:
 
 def main(argv=None):
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     os.makedirs(args.scores_dir, exist_ok=True)
     result_path = os.path.join(args.scores_dir, "result.metrics")

@@ -198,6 +198,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.cli.extract import load_model
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     if not (args.exp_dir or args.model_id):
         raise SystemExit("one of --exp_dir / --model_id required")
     dev = resolve_device(args.device)

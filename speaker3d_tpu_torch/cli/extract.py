@@ -200,11 +200,12 @@ def write_embeddings(out_dir: str, embs, out_type: str) -> None:
 
 def main(argv=None):
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
-    from speaker3d_tpu_torch.parallel.mesh import process_shard
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost, process_shard
     from speaker3d_tpu_torch.utils.fanout import maybe_fanout
     from speaker3d_tpu_torch.utils.fileio import load_wav_scp
 
     args = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     if not (args.exp_dir or args.model_id):
         raise SystemExit("one of --exp_dir / --model_id is required")
     device = resolve_device(args.device)

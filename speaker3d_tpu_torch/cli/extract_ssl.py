@@ -63,7 +63,8 @@ def load_teacher_embedder(exp_dir: str, variant: str,
 
 def main(argv=None):
     from speaker3d_tpu_torch.eval.scoring import save_embeddings
-    from speaker3d_tpu_torch.parallel.mesh import process_rank, process_shard
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank, process_shard)
     from speaker3d_tpu_torch.utils.fileio import load_audio, load_wav_scp
 
     p = argparse.ArgumentParser()
@@ -74,6 +75,7 @@ def main(argv=None):
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device; 'cpu' must be asked for")
     args = p.parse_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
 
     embed = load_teacher_embedder(args.exp_dir, args.variant, args.device)
     wav_scp = load_wav_scp(args.data)

@@ -132,11 +132,12 @@ def main(argv=None):
     from speaker3d_tpu_torch.diar.cluster import CommonClustering
     from speaker3d_tpu_torch.diar.pipeline import DiarizationPipeline
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
-    from speaker3d_tpu_torch.parallel.mesh import process_shard
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost, process_shard
     from speaker3d_tpu_torch.utils.fanout import maybe_fanout
     from speaker3d_tpu_torch.utils.fileio import write_wav
 
     args = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     if args.include_overlap and not args.segmentation_exp_dir:
         raise SystemExit("--include_overlap requires --segmentation_exp_dir "
                          "(train one with cli/train_segmentation.py)")

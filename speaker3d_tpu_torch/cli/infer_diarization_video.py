@@ -335,6 +335,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.fileio import load_audio
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     tmp_wav = None

@@ -46,6 +46,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.fileio import load_audio
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     model = load_pretrained(args.model_id, args.local_model_dir)
     embed = build_embedding_fn(model, device=device, precision="highest")

@@ -61,10 +61,11 @@ def main(argv=None):
     from speaker3d_tpu_torch.cli.infer_diarization import collect_wavs
     from speaker3d_tpu_torch.device import resolve_device
     from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
-    from speaker3d_tpu_torch.parallel.mesh import process_shard
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost, process_shard
     from speaker3d_tpu_torch.utils.fanout import maybe_fanout
 
     args = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if maybe_fanout("speaker3d_tpu_torch.cli.infer_sv_batch", argv,
                     args.nprocs):

@@ -36,6 +36,8 @@ def main(argv=None):
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device; 'cpu' must be asked for")
     args = p.parse_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
 
     embed = load_teacher_embedder(args.exp_dir, args.variant, args.device)
     embs = []

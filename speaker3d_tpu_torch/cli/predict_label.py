@@ -75,6 +75,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.fileio import load_wav_scp
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     model, _ = build_model_from_exp(args.exp_dir)
     embed = build_embedding_fn(model, device=args.device, precision="high",
                                mean_norm=True)

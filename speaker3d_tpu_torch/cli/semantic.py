@@ -130,13 +130,15 @@ def main(argv=None):
         _StepClock, _TimedIter, print_epoch_summary)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.eval.embedding import matmul_precision
-    from speaker3d_tpu_torch.parallel.mesh import process_rank_count
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank_count)
     from speaker3d_tpu_torch.semantic.bert import (
         SemanticTrainConfig, build_model, classification_metrics,
         make_semantic_train_step)
     from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
 
     args = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if process_rank_count()[1] > 1:
         raise NotImplementedError(MULTI_CARD_NOT_PORTED)

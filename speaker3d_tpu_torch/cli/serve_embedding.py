@@ -58,6 +58,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.serve import serve
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     if not (args.exp_dir or args.model_id):
         raise SystemExit("one of --exp_dir / --model_id is required")
     device = resolve_device(args.device)

@@ -1,4 +1,4 @@
-"""Supervised SV trainer CLI on one CUDA card (or the CPU when asked).
+"""Supervised SV trainer CLI on CUDA cards (or the CPU when asked).
 
 The counterpart of ``speaker3d_tpu/cli/train.py``: build the config (YAML +
 ``--key=value`` overrides, written to ``exp_dir/config.yaml``), the dataset
@@ -11,19 +11,30 @@ time the loop waited on the loader) and one checkpoint.
 Usage:
   python -m speaker3d_tpu_torch.cli.train --config configs/eres2netv2.yaml \
       [--device cuda] [--any_yaml_key=value ...]
+  torchrun --nproc_per_node 4 -m speaker3d_tpu_torch.cli.train \
+      --config ... [--model_parallel=2] [--device cpu]
 
-``batch_size`` is the global batch, all of it on this card. Deliberate
+One process per card: ``init_multihost`` joins the processes that torchrun
+(or ``SPEAKER3D_COORDINATOR_ADDRESS`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``)
+describes, over ``nccl`` on the cards and ``gloo`` with ``--device cpu``.
+The ``('data', 'model')`` mesh is sized as the JAX CLI sizes it, a node's
+ranks taking the place of a host's devices (``train_mesh``), and must hold
+every rank. ``batch_size`` is the global batch; each data row loads its
+share, and ``model_parallel`` splits the classifier's classes. Rank 0
+alone writes the config copy, the logs and the checkpoints. Deliberate
 differences from the JAX CLI: the model's initial weights and the classifier
 draw from torch generators seeded by ``--seed`` (the JAX PRNG stream cannot
-be reproduced); one card only (``model_parallel > 1`` is ROADMAP.md M14).
+be reproduced).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import random
 import time
+from typing import Optional
 
 import torch
 
@@ -32,6 +43,8 @@ from speaker3d_tpu_torch.data.prefetch import device_prefetch
 from speaker3d_tpu_torch.data.processors import SpkLabelEncoder, SpkVeriAug, WavReader
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.parallel.mesh import (
+    Mesh, balanced_devices, init_multihost, is_main_process, make_mesh)
 from speaker3d_tpu_torch.train.sv_train import (
     SVTrainConfig, init_sv_train_state, load_state_tree, make_sv_train_step,
     state_tree)
@@ -136,11 +149,38 @@ def build_model(config, seed: int) -> torch.nn.Module:
         return model_cls(**config["model"].get("args", {}))
 
 
+def train_mesh(config, device) -> Mesh:
+    """The trainer's ('data', 'model') mesh over the process group, sized as
+    the JAX CLI sizes it with a node's ranks (torchrun's
+    ``LOCAL_WORLD_SIZE``) as a host's devices: ``n_data = nodes *
+    gcd(batch_size / nodes, ranks per node / model_parallel)``. One process
+    with no group is a 1 x 1 mesh. A rank outside the mesh would idle, so a
+    world larger than the mesh is refused."""
+    world = torch.distributed.get_world_size() if (
+        torch.distributed.is_available()
+        and torch.distributed.is_initialized()) else 1
+    n_model = config.get("model_parallel", 1)
+    n_local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    n_nodes = max(1, world // n_local)
+    per_node_batch = config.get("batch_size", 128) // n_nodes
+    n_data = n_nodes * math.gcd(per_node_batch, max(n_local // n_model, 1))
+    mesh = make_mesh(data=n_data, model=n_model,
+                     devices=balanced_devices(n_data * n_model), device=device)
+    if mesh.size != world:
+        raise ValueError(
+            f"the mesh {n_data}x{n_model} (batch_size "
+            f"{config.get('batch_size', 128)}, model_parallel {n_model}) uses "
+            f"{mesh.size} of the {world} processes; launch {mesh.size}")
+    return mesh
+
+
 def build_loader(config, seed: int, *, speed_pertub: bool = True,
-                 wire: str = "int16") -> tuple:
+                 wire: str = "int16", mesh: Optional[Mesh] = None) -> tuple:
     """(dataset, loader, label encoder) of the config's ``data`` CSV.
     ``speed_pertub`` and ``wire`` are the defaults of the config keys
-    ``speed_pertub`` and ``wire_dtype`` ('int16' or 'float32')."""
+    ``speed_pertub`` and ``wire_dtype`` ('int16' or 'float32'). On a
+    ``mesh`` the loader yields this rank's data-row share of each global
+    batch."""
     # every random draw of the data pipeline (speeds, crops, augmentation)
     # comes from this generator, seeded as the JAX CLI seeds the global one
     data_rng = random.Random(seed)
@@ -160,9 +200,16 @@ def build_loader(config, seed: int, *, speed_pertub: bool = True,
         raise ValueError(
             f"config key 'wire_dtype' must be 'float32' or 'int16', "
             f"got {wire!r}")
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    batch = config.get("batch_size", 128)
+    if batch % n_data:
+        raise ValueError(f"batch_size {batch} is not divisible by the mesh's "
+                         f"data axis ({n_data})")
     loader = BatchLoader(
-        dataset, batch_size=config.get("batch_size", 128),
+        dataset, batch_size=batch // n_data,
         num_workers=config.get("num_workers", 8), seed=seed,
+        process_index=0 if mesh is None else mesh.index("data"),
+        process_count=n_data,
         wire_dtype=None if wire == "float32" else wire)
     return dataset, loader, label_encoder
 
@@ -194,21 +241,23 @@ def sv_train_config(config, num_classes: int,
 
 def main(argv=None):
     args, overrides = get_args(argv)
+    init_multihost(device=args.device)
     device = resolve_device(args.device)
     set_seed(args.seed)
-    config = build_config(args.config, overrides, copy_to_exp_dir=True)
+    config = build_config(args.config, overrides,
+                          copy_to_exp_dir=is_main_process())
     os.makedirs(config["exp_dir"], exist_ok=True)
-    dataset, loader, label_encoder = build_loader(config, args.seed)
+    mesh = train_mesh(config, device)
+    dataset, loader, label_encoder = build_loader(config, args.seed,
+                                                  mesh=mesh)
 
     model = build_model(config, args.seed)
     cfg = sv_train_config(config, dataset.num_classes, len(loader))
     fbank = KaldiFbank(FbankConfig(
         sample_rate=config.get("sample_rate", 16000),
         num_mel_bins=config.get("n_mels", 80)), mean_norm=True, device=device)
-    train_step = make_sv_train_step(
-        model, cfg, feature_fn=fbank,
-        model_parallel=config.get("model_parallel", 1))
-    state = init_sv_train_state(model, cfg, seed=args.seed, device=device)
+    train_step = make_sv_train_step(model, cfg, feature_fn=fbank, mesh=mesh)
+    state = init_sv_train_state(model, cfg, seed=args.seed, mesh=mesh)
     fit(args, config, device, state, train_step, loader, label_encoder)
 
 
@@ -219,7 +268,9 @@ def fit(args, config, device: torch.device, state, train_step, loader,
     checkpoint (either trainer's layout), or with ``warm_start`` from
     ``init_exp_dir``; per epoch the train loop, one ``train_epoch.log``
     line, the ``epoch N: ...`` summary and one checkpoint of
-    ``tree_fn(state)``; a preemption checkpoint on SIGTERM."""
+    ``tree_fn(state)``; a preemption checkpoint on SIGTERM. Every rank runs
+    the loop and builds the trees (they gather the class shards); rank 0
+    alone writes."""
     exp_dir = config["exp_dir"]
     step_per_epoch = len(loader)
     epoch_counter = EpochCounter(config.get("num_epoch", 70))
@@ -242,8 +293,11 @@ def fit(args, config, device: torch.device, state, train_step, loader,
         print(f"warm start from {config['init_exp_dir']} "
               f"(epoch {src['__meta__']['epoch']}), optimizer reset")
 
+    main_proc = is_main_process()
+    n_data = 1 if state.mesh is None else state.mesh.shape["data"]
     logger = EpochLogger(os.path.join(exp_dir, "train_epoch.log"))
-    label_encoder.save(os.path.join(exp_dir, "label_encoder.pkl"))
+    if main_proc:
+        label_encoder.save(os.path.join(exp_dir, "label_encoder.pkl"))
     log_every = config.get("log_batch_freq", 50)
     shutdown = GracefulShutdown()
     preempted = False
@@ -267,7 +321,7 @@ def fit(args, config, device: torch.device, state, train_step, loader,
             # device scalars, read once per epoch (or at a log line)
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
-            if (i + 1) % log_every == 0:
+            if main_proc and (i + 1) % log_every == 0:
                 print(f"epoch {epoch} step {i+1}/{step_per_epoch} "
                       f"loss {float(losses[-1]):.4f} "
                       f"acc {float(accs[-1]):.3f} "
@@ -277,17 +331,22 @@ def fit(args, config, device: torch.device, state, train_step, loader,
         clock.mark()
         timed.close()
         if preempted:
-            save_preemption_checkpoint(checkpointer, epoch_counter, epoch,
-                                       {"train_state": tree_fn(state)})
+            tree = tree_fn(state)
+            if main_proc:
+                save_preemption_checkpoint(checkpointer, epoch_counter,
+                                           epoch, {"train_state": tree})
             break
+        tree = tree_fn(state)
+        if not main_proc:
+            continue
         logger.log_stats(
             {"epoch": epoch, "time_s": round(time.time() - t0, 1),
              "data_wait_s": round(timed.wait, 1)},
             {"avg_loss": fetch_mean(losses) if losses else None,
              "avg_acc": fetch_mean(accs) if accs else None})
-        print_epoch_summary(epoch, clock, timed, loader.batch_size,
+        print_epoch_summary(epoch, clock, timed, loader.batch_size * n_data,
                             time.time() - t0, device)
-        checkpointer.save_checkpoint(epoch, {"train_state": tree_fn(state)})
+        checkpointer.save_checkpoint(epoch, {"train_state": tree})
     tracer.close()
     shutdown.finalize(preempted)
 

@@ -106,6 +106,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.profiling import StepTracer
 
     args = get_args(argv)
+    from speaker3d_tpu_torch.parallel.mesh import init_multihost
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     set_seed(args.seed)  # reference: bin/train_asd.py seeds the RNGs
     os.makedirs(args.exp_dir, exist_ok=True)

@@ -127,7 +127,8 @@ def main(argv=None):
         _StepClock, _TimedIter, print_epoch_summary)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
-    from speaker3d_tpu_torch.parallel.mesh import process_rank_count
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank_count)
     from speaker3d_tpu_torch.train.vad_train import (
         init_adam_train_state, load_state_tree, state_tree)
     from speaker3d_tpu_torch.utils.checkpoint import (
@@ -136,6 +137,7 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.fileio import load_data_csv
 
     args, overrides = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if process_rank_count()[1] > 1:
         raise NotImplementedError(MULTI_CARD_NOT_PORTED)

@@ -144,7 +144,8 @@ def main(argv=None):
     from speaker3d_tpu_torch.cli.train import (
         _StepClock, _TimedIter, print_epoch_summary)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
-    from speaker3d_tpu_torch.parallel.mesh import process_rank_count
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank_count)
     from speaker3d_tpu_torch.train.vad_train import (
         init_adam_train_state, load_state_tree, state_tree)
     from speaker3d_tpu_torch.utils.checkpoint import (
@@ -153,6 +154,7 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.misc import fetch_mean, set_seed
 
     args, overrides = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if process_rank_count()[1] > 1:
         raise NotImplementedError(MULTI_CARD_NOT_PORTED)

@@ -1,5 +1,5 @@
-"""ASR-encoder-fused speaker training (train_para) on one CUDA card (or the
-CPU when asked).
+"""ASR-encoder-fused speaker training (train_para) on CUDA cards (or the CPU
+when asked).
 
 The counterpart of ``speaker3d_tpu/cli/train_para.py``: per step a FROZEN
 Paraformer-style ASR encoder turns the acoustic features into [B, T,
@@ -25,7 +25,9 @@ Usage:
 
 The rest is ``cli/train.py``'s loop (``fit``): the loader, checkpoints and
 recovery, SIGTERM, ``--profile_dir``, ``train_epoch.log`` and the ``epoch
-N: ...`` summary. One card: ``model_parallel > 1`` is ROADMAP.md M14.
+N: ...`` summary, and its mesh (``train_mesh``): one process per card,
+joined by ``init_multihost``, ``model_parallel`` splitting the classes,
+rank 0 alone writing.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import pickle
 import torch
 
 from speaker3d_tpu_torch.cli.train import (
-    build_loader, build_model, fit, sv_train_config)
+    build_loader, build_model, fit, sv_train_config, train_mesh)
 from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
 from speaker3d_tpu_torch.compat.funasr_convert import load_funasr_encoder
 from speaker3d_tpu_torch.data.processor_para import apply_lfr_device, load_cmvn
@@ -45,6 +47,7 @@ from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.models.fsmn_vad import lecun_init_
 from speaker3d_tpu_torch.models.sanm import SANMEncoder
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.parallel.mesh import init_multihost, is_main_process
 from speaker3d_tpu_torch.train.sv_train import (
     flax_state_tree, init_sv_train_state, make_sv_train_step)
 from speaker3d_tpu_torch.utils.builder import dynamic_import
@@ -134,21 +137,23 @@ def build_frozen_frontend(config, seed: int, device=DEFAULT_DEVICE) -> tuple:
 
 def main(argv=None):
     args, overrides = get_args(argv)
+    init_multihost(device=args.device)
     device = resolve_device(args.device)
     set_seed(args.seed)
-    config = build_config(args.config, overrides, copy_to_exp_dir=True)
+    config = build_config(args.config, overrides,
+                          copy_to_exp_dir=is_main_process())
     os.makedirs(config["exp_dir"], exist_ok=True)
+    mesh = train_mesh(config, device)
     dataset, loader, label_encoder = build_loader(
-        config, args.seed, speed_pertub=False, wire="float32")
+        config, args.seed, speed_pertub=False, wire="float32", mesh=mesh)
 
     frontend, d_model, _ = build_frozen_frontend(config, args.seed, device)
     config["model"].setdefault("args", {}).setdefault("feat_dim", d_model)
     model = build_model(config, args.seed)
     cfg = sv_train_config(config, dataset.num_classes, len(loader))
-    train_step = make_sv_train_step(
-        model, cfg, feature_fn=frontend,
-        model_parallel=config.get("model_parallel", 1))
-    state = init_sv_train_state(model, cfg, seed=args.seed, device=device)
+    train_step = make_sv_train_step(model, cfg, feature_fn=frontend,
+                                    mesh=mesh)
+    state = init_sv_train_state(model, cfg, seed=args.seed, mesh=mesh)
     fit(args, config, device, state, train_step, loader, label_encoder,
         tree_fn=flax_state_tree, warm_start=False, log_margin=False)
 

@@ -134,7 +134,8 @@ def main(argv=None):
         RDINODataset, SDPNDataset, SSLBatchLoader)
     from speaker3d_tpu_torch.data.prefetch import device_prefetch
     from speaker3d_tpu_torch.ops.melspec import MelSpecConfig, MelSpectrogram
-    from speaker3d_tpu_torch.parallel.mesh import process_rank_count
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank_count)
     from speaker3d_tpu_torch.train.ssl_train import (
         init_ssl_state, load_state_tree, make_rdino_train_step,
         make_sdpn_train_step, state_tree)
@@ -145,6 +146,7 @@ def main(argv=None):
     from speaker3d_tpu_torch.utils.profiling import StepTracer
 
     args, overrides = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if process_rank_count()[1] > 1:
         raise NotImplementedError(MULTI_CARD_NOT_PORTED)

@@ -62,10 +62,12 @@ def get_args(argv=None, description="Train the DFSMN VAD"):
 def setup(argv, description):
     """(args, device, config) with the checks every FSMN trainer makes
     first: the device, one card, the seed."""
-    from speaker3d_tpu_torch.parallel.mesh import process_rank_count
+    from speaker3d_tpu_torch.parallel.mesh import (
+        init_multihost, process_rank_count)
     from speaker3d_tpu_torch.utils.misc import set_seed
 
     args, overrides = get_args(argv, description)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     if process_rank_count()[1] > 1:
         raise NotImplementedError(MULTI_CARD_NOT_PORTED)

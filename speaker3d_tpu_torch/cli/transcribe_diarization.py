@@ -27,7 +27,7 @@ import json
 import os
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from speaker3d_tpu_torch.parallel.mesh import process_shard
+from speaker3d_tpu_torch.parallel.mesh import init_multihost, process_shard
 
 
 def get_args(argv=None):
@@ -78,6 +78,7 @@ def main(argv=None):
     from speaker3d_tpu_torch.diar.transcribe import attribute_transcript
 
     args = get_args(argv)
+    init_multihost(device=args.device)  # under torchrun: the process group
     device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     transcriber = None

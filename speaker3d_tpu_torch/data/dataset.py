@@ -6,7 +6,10 @@ wav crops: fbank runs on the card inside the train step. ``BatchLoader``
 assembles fixed-shape numpy batches on a thread pool, shuffled by a
 ``random.Random(seed + epoch)``, the last partial batch dropped, wavs
 optionally shipped as PCM16 (``wire_dtype='int16'``, half the bytes; the
-step decodes k/32768 on the card).
+step decodes k/32768 on the card). Several processes share an epoch's
+order round-robin (``process_index`` of ``process_count``; on a mesh a
+rank's share is its data index), each cut to the same length so that every
+process yields the same number of batches.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, seed: int = 0, prefetch: int = 4,
+                 process_index: int = 0, process_count: int = 1,
                  drop_last: bool = True, wire_dtype: Optional[str] = None):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -63,6 +67,8 @@ class BatchLoader:
         self.num_workers = num_workers
         self.seed = seed
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self.drop_last = drop_last
         # 'int16': PCM16 on the wire. Exact for PCM16-decoded samples;
         # augmented values re-quantize to within 1/65536, and a peak past
@@ -78,13 +84,17 @@ class BatchLoader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
         order = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(order)
+        # every process takes as many examples, so that none waits in a
+        # collective for a peer that has run out
+        order = order[self.process_index::self.process_count][
+            : len(self.dataset) // self.process_count]
         n_batches = len(self)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -5,6 +5,9 @@ callable is the device hot path of diarization: PCM16 decode, the fbank
 kernel, mean-norm over time, the backbone, float32 out. ``build_feature_fn``
 is the fbank alone. ``dtype=torch.bfloat16`` runs the backbone in bf16 (the
 Res2 blocks through the Res2 kernel's bf16 variant); the fbank stays fp32.
+``build_sharded_embedding_fn`` is the data-parallel form over a mesh's
+``data`` axis: each rank embeds its rows of the batch and every rank gets
+the whole batch's embeddings.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.parallel.mesh import Mesh, all_gather, data_sharded, shard
 
 # The JAX package's precision names. "high" (what the diarization CLI passes)
 # and "float32" keep full fp32 products; None lets cuDNN and cuBLAS use TF32.
@@ -87,6 +91,37 @@ def build_embedding_fn(model: torch.nn.Module,
             return model(feats).to(torch.float32)
 
     return embed
+
+
+def build_sharded_embedding_fn(model: torch.nn.Module,
+                               state: Optional[Mapping[str, torch.Tensor]],
+                               mesh: Mesh, *, sample_rate: int = 16000,
+                               num_mel_bins: int = 80, mean_norm: bool = True,
+                               dtype: Optional[torch.dtype] = None,
+                               precision: Optional[str] = "float32"
+                               ) -> Callable:
+    """Data-parallel ``build_embedding_fn`` over ``mesh``'s ``data`` axis:
+    the parameters replicated (``model`` and ``state`` as every rank holds
+    them), the batch [B, L] split into contiguous row blocks over ``data``,
+    the fbank and the backbone (on a card K1 and K2) on each rank's block
+    on the mesh's device, and the [B, D] float32 embeddings gathered to
+    every rank, as the JAX function's replicated output. B must divide by
+    the data axis; every rank of the mesh calls with the same batch."""
+    n_data = mesh.shape["data"]
+    embed = build_embedding_fn(model, state, device=mesh.device,
+                               precision=precision, mean_norm=mean_norm,
+                               sample_rate=sample_rate,
+                               num_mel_bins=num_mel_bins, dtype=dtype)
+
+    def run(wavs):
+        if wavs.shape[0] % n_data:
+            raise AssertionError(f"batch {wavs.shape[0]} not divisible by "
+                                 f"data axis {n_data}")
+        rows = embed(shard(wavs, data_sharded(mesh, 2)))
+        with torch.inference_mode():
+            return all_gather(rows, mesh, "data")
+
+    return run
 
 
 def build_feature_fn(*, sample_rate: int = 16000, num_mel_bins: int = 80,

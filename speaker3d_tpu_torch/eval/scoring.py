@@ -18,6 +18,7 @@ import torch
 
 from speaker3d_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from speaker3d_tpu_torch.eval.embedding import matmul_precision
+from speaker3d_tpu_torch.parallel.mesh import all_gather, data_sharded, shard
 from speaker3d_tpu_torch.utils.kaldi_ark import read_ark, read_scp
 
 
@@ -114,14 +115,19 @@ def score_trials(enrol: Dict[str, np.ndarray], test: Dict[str, np.ndarray],
 def pairwise_cosine_device(emb: np.ndarray, mesh=None, *,
                            device=DEFAULT_DEVICE) -> np.ndarray:
     """All-pairs cosine as one fp32 product on ``device``, TF32 off (the
-    JAX function's ``Precision.HIGHEST``). The JAX function's ``mesh``
-    (rows sharded over several chips) has no single-card meaning here."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "pairwise_cosine_device(mesh=...): the row-sharded multi-card "
-            "path is not ported to the PyTorch package yet (ROADMAP.md, M14)")
-    dev = resolve_device(device)
+    JAX function's ``Precision.HIGHEST``). With a ``mesh`` (every rank
+    calls with the same ``emb``) the rows, padded with zeros to a multiple
+    of the data axis, are split over ``data``: each rank multiplies its
+    row block by the whole on the mesh's device and the blocks are
+    gathered to every rank."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     x = torch.as_tensor(np.asarray(emb, np.float32), device=dev)
     x = torch.nn.functional.normalize(x, dim=1, eps=1e-12)
+    if mesh is None:
+        with matmul_precision("highest"):
+            return (x @ x.T).cpu().numpy()
+    n = x.shape[0]
+    x = torch.nn.functional.pad(x, (0, 0, 0, (-n) % mesh.shape["data"]))
     with matmul_precision("highest"):
-        return (x @ x.T).cpu().numpy()
+        rows = shard(x, data_sharded(mesh, 2)) @ x.T
+    return all_gather(rows, mesh, "data")[:n, :n].cpu().numpy()

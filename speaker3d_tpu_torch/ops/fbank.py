@@ -27,6 +27,11 @@ def mel_scale(freq):
     return 1127.0 * np.log1p(np.asarray(freq, dtype=np.float64) / 700.0)
 
 
+def inverse_mel_scale(mel):
+    """The frequency of a Kaldi mel value: 700 * (exp(mel / 1127) - 1)."""
+    return 700.0 * (np.exp(np.asarray(mel, dtype=np.float64) / 1127.0) - 1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class FbankConfig:
     """Kaldi FbankOptions / FrameExtractionOptions / MelBanksOptions."""

@@ -5,9 +5,10 @@ The counterpart of ``speaker3d_tpu/train/losses.py``: AAM-softmax
 AddMargin (CosFace) and plain cross entropy. The margin may be a number or
 a 0-d CPU tensor, so one step function serves the whole margin ramp.
 
-``sharded_arc_margin_loss`` is the JAX trainer's vocab-parallel loss for one
-shard: offset 0, the whole class axis on this card. Classes sharded over
-several cards are ROADMAP.md M14.
+``sharded_arc_margin_loss`` is the JAX trainer's vocab-parallel loss: the
+classes sharded over the ``model`` axis's process group, the row maximum,
+the sum of exponentials and the target logit reduced across the shards
+(``parallel/mesh.py``'s ``pmax`` and differentiable ``psum``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from speaker3d_tpu_torch.parallel.mesh import pmax, psum
 
 
 def _margin_terms(margin):
@@ -67,24 +70,31 @@ def entropy_loss(logits, labels):
 
 
 def sharded_arc_margin_loss(local_cosine, labels, shard_offset, margin,
-                            scale=32.0, easy_margin=False):
-    """Per-example AAM cross entropy [B] over the class shard that starts at
-    ``shard_offset``; on one card that shard is the whole class axis."""
-    if shard_offset != 0:
-        raise NotImplementedError(
-            "classes sharded over several cards: ROADMAP.md M14; on one "
-            "card the shard is the whole class axis (offset 0)")
+                            scale=32.0, easy_margin=False, group=None):
+    """Per-example AAM cross entropy [B] with the classes sharded over
+    ``group`` (the model axis's process group; None: one shard, the whole
+    class axis). ``local_cosine`` [B, C_local] is this shard's slice of the
+    cosine logits, ``labels`` [B] the global class ids (the same on every
+    shard), ``shard_offset`` the first class this shard owns. Every shard
+    returns the same values; their gradients reach each shard's slice
+    through the differentiable ``psum``, whose backward sums the
+    cotangents, as JAX's does."""
+    if group is None and shard_offset != 0:
+        raise ValueError(f"a class shard at offset {shard_offset} needs the "
+                         f"model axis's process group (group=None is one "
+                         f"shard, which starts at 0)")
     c_local = local_cosine.shape[-1]
-    labels = labels.long()
-    owned = (labels >= 0) & (labels < c_local)
-    safe = torch.where(owned, labels, torch.zeros_like(labels))
+    local_label = labels.long() - shard_offset
+    owned = (local_label >= 0) & (local_label < c_local)
+    safe = torch.where(owned, local_label, torch.zeros_like(local_label))
     phi = _phi(local_cosine, margin, easy_margin)
     one_hot = (F.one_hot(safe, c_local).to(local_cosine.dtype)
                * owned[:, None].to(local_cosine.dtype))
     logits = (one_hot * phi + (1.0 - one_hot) * local_cosine) * scale
-    # the max shift is inert in the value; detached, as in the JAX loss
-    top = logits.max(dim=-1).values.detach()
-    sumexp = torch.exp(logits - top[:, None]).sum(dim=-1)
-    target = torch.where(owned, logits.gather(1, safe[:, None])[:, 0],
-                         torch.zeros_like(top))
+    # the max shift is inert in the value; detached, as in the JAX loss,
+    # so no cotangent runs through the maximum
+    top = pmax(logits.max(dim=-1).values.detach(), group)
+    sumexp = psum(torch.exp(logits - top[:, None]).sum(dim=-1), group)
+    target = psum(torch.where(owned, logits.gather(1, safe[:, None])[:, 0],
+                              torch.zeros_like(top)), group)
     return top + torch.log(sumexp) - target

@@ -1,12 +1,16 @@
-"""Small shared utilities: seeding, meters, map helpers.
+"""Small shared utilities: seeding, logging, meters, map helpers.
 
 The counterpart of ``speaker3d_tpu/utils/misc.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import random
-from typing import Dict
+import sys
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -15,6 +19,34 @@ import torch
 def set_seed(seed: int = 1234):
     random.seed(seed)
     np.random.seed(seed)
+
+
+def get_logger(name: str = "speaker3d_tpu", fpath: Optional[str] = None,
+               fmt: str = "%(asctime)s [%(levelname)s] %(message)s"):
+    """The named logger at INFO with its handlers replaced: one to stdout
+    and, with ``fpath``, one to that file, both in ``fmt``."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    formatter = logging.Formatter(fmt)
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(formatter)
+    logger.addHandler(sh)
+    if fpath:
+        fh = logging.FileHandler(fpath)
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
+    return logger
+
+
+@contextlib.contextmanager
+def silent_print():
+    """Suppress stdout and stderr within the block (for noisy third-party
+    model loads)."""
+    with open(os.devnull, "w") as devnull:
+        with contextlib.redirect_stdout(devnull), \
+                contextlib.redirect_stderr(devnull):
+            yield
 
 
 class AverageMeter:

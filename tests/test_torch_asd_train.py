@@ -56,7 +56,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax.tree_util import keystr, tree_flatten_with_path
 
-from tests.torch_threads import worker_threads
+from tests.torch_threads import cap_torch_threads, worker_threads  # noqa: F401
 from speaker3d_tpu.models.talknet import TalkNetModel as JaxTalkNet
 from speaker3d_tpu.parallel.mesh import make_mesh
 from speaker3d_tpu.train import asd_train as jtrain

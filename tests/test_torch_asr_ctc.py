@@ -33,6 +33,7 @@ from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
 from speaker3d_tpu_torch.train import vad_train
 from speaker3d_tpu_torch.utils.threads import cpu_threads
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 TOL = 1e-4
 PORT_THREADS = 2

@@ -21,6 +21,7 @@ from speaker3d_tpu_torch.models.common import (
     BN_EPS, batch_norm1d, batch_norm2d, frozen_running_stats)
 from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
 from tests.test_torch_eres2netv2 import jax_variables
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(num_blocks=(1, 1, 1, 1), m_channels=8, feat_dim=80,
              embedding_size=32)

@@ -34,6 +34,7 @@ from speaker3d_tpu_torch.cli import detect_boundaries
 from speaker3d_tpu_torch.diar import boundaries as pb
 from speaker3d_tpu_torch.diar.gmm import GaussianMixture
 from tests.test_boundaries import _sequential_embs
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ import os
 import pytest
 
 from speaker3d_tpu_torch.kernels import build
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 @pytest.fixture

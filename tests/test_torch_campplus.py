@@ -28,6 +28,7 @@ from speaker3d_tpu_torch.models.campplus import CAMPPlus, seg_avg_pool_expand
 from speaker3d_tpu_torch.utils.fileio import write_wav
 from tests.test_diar_pipeline import _two_speaker_wav
 from tests.test_torch_eres2netv2 import assert_close_scaled, jax_variables
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 # narrow dense layers; the FCM head keeps its 32 channels
 SMALL = dict(feat_dim=80, embedding_size=32, growth_rate=8, bn_size=2,

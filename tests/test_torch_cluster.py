@@ -9,6 +9,7 @@ from speaker3d_tpu.diar import ahc_nnchain as jnn
 from speaker3d_tpu.diar.cluster import CommonClustering as JaxCommon
 from speaker3d_tpu_torch.diar import ahc_nnchain as tnn
 from speaker3d_tpu_torch.diar.cluster import AHCluster, CommonClustering
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _embs(rng, n, n_spk=5, d=32, noise=0.15):

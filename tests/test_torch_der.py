@@ -12,6 +12,7 @@ from speaker3d_tpu.cli import compute_der as jcli
 from speaker3d_tpu.diar import der as jder
 from speaker3d_tpu_torch.cli import compute_der as tcli
 from speaker3d_tpu_torch.diar import der as tder
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _segments(draw, n, speakers):

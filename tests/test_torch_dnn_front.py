@@ -22,6 +22,7 @@ from speaker3d_tpu.diar import dnn_seg as jseg
 from speaker3d_tpu.diar import dnn_vad as jvad
 from speaker3d_tpu_torch.diar import dnn_seg as tseg
 from speaker3d_tpu_torch.diar import dnn_vad as tvad
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = fx.FS
 ATOL = 1e-4

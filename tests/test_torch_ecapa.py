@@ -19,6 +19,7 @@ from speaker3d_tpu.models.ecapa_tdnn import SBConv1d as JaxSBConv1d
 from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
 from speaker3d_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN, SBConv1d
 from tests.test_torch_eres2netv2 import assert_close_scaled, jax_variables
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(input_size=80, lin_neurons=32, channels=(64, 64, 64, 64, 192),
              attention_channels=32, se_channels=16)

@@ -22,6 +22,7 @@ from speaker3d_tpu_torch.cli import registry as treg
 from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
 from speaker3d_tpu_torch.models.eres2net import ERes2Net, eres2net_large
 from tests.test_torch_eres2netv2 import assert_close_scaled, jax_variables
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(num_blocks=(2, 2, 1, 1), m_channels=16, feat_dim=80,
              embedding_size=32)

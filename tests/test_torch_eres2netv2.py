@@ -17,6 +17,7 @@ from speaker3d_tpu.models.eres2netv2 import ERes2NetV2 as JaxERes2NetV2
 from speaker3d_tpu_torch.compat.flax_convert import (
     load_torch_checkpoint, state_dict_from_flax)
 from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2, eres2netv2_w24s4ep4
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(num_blocks=(2, 2, 1, 1), m_channels=16, feat_dim=80,
              embedding_size=32)

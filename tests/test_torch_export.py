@@ -26,6 +26,7 @@ from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
 from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
 from tests.test_torch_eres2netv2 import (
     assert_close_scaled, jax_variables, port_model)
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(num_blocks=(1, 2, 1, 1), m_channels=8, feat_dim=80,
              embedding_size=16, base_width=26, scale=2, expansion=2)

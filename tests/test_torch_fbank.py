@@ -17,6 +17,7 @@ from speaker3d_tpu.ops import fbank as jfbank
 from speaker3d_tpu.ops.pallas.fbank_kernel import pallas_fbank
 from speaker3d_tpu_torch.ops import fbank as tfbank
 from speaker3d_tpu_torch.ops.kernels import fbank_kernel
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_fbank_ref.npz")
 

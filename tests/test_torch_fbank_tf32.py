@@ -21,6 +21,7 @@ from speaker3d_tpu_torch.ops import fbank as tfbank
 from speaker3d_tpu_torch.ops.kernels import fbank_kernel as fk
 from speaker3d_tpu_torch.ops.kernels.tf32 import tf32_split
 from tests.test_torch_res2_tf32 import _unpack_b
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 NB = 256

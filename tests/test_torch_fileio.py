@@ -6,6 +6,7 @@ import pytest
 
 from speaker3d_tpu.utils import fileio as jax_io
 from speaker3d_tpu_torch.utils import fileio as port_io
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SCP = {"utt1": "/data/a b/utt1.wav", "utt2": "rel/utt2.wav", "u3": "x"}
 JSON = {"name": "会议", "segments": [[0.0, 1.5, "spk0"], [1.5, 3.25, "spk1"]],

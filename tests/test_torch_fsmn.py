@@ -21,6 +21,7 @@ from speaker3d_tpu_torch.compat.flax_convert import (
     flax_from_state_dict, state_dict_from_flax)
 from speaker3d_tpu_torch.models import fsmn_vad as tvad
 from speaker3d_tpu_torch.models import segmentation as tseg
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 SMALL = dict(feat_dim=80, hidden_dim=32, proj_dim=16, num_layers=2,
              lorder=6, rorder=3)

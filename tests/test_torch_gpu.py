@@ -1499,3 +1499,118 @@ def test_res2_operator_through_an_aoti_package_on_the_card(cuda, tmp_path):
     assert rk.res2_block.launches == k2 + 4
     torch.testing.assert_close(got, _plain_blocks(model, x), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """A process group of this process alone over NCCL (one card admits one
+    NCCL rank), through ``init_multihost``; its 1 x 1 mesh."""
+    import socket
+
+    from speaker3d_tpu_torch.parallel import mesh as pm
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert pm.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield pm.make_mesh(device="cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_world_1_mesh_train_step_equals_the_step_without_a_group(
+        cuda, nccl_world_1):
+    """The mesh step's collectives (the flat gradient sums, the loss and
+    accuracy, the BatchNorm statistics' mean, the class shards) over one
+    NCCL rank change nothing: two steps through K1 as without a mesh. Both
+    runs take cuDNN's deterministic algorithms, so that a difference can
+    come only from the mesh path: cuDNN's default weight gradients sum in
+    a racy order, and two runs without a mesh differ."""
+    from speaker3d_tpu_torch.train import sv_train
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        _world_1_step_matches(sv_train, nccl_world_1, cuda)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _world_1_step_matches(sv_train, mesh_1, cuda):
+
+    def run(mesh):
+        torch.manual_seed(3)
+        model = ERes2NetV2(**TRAIN_ARGS)
+        cfg = sv_train.SVTrainConfig(num_classes=24, step_per_epoch=10,
+                                     warmup_epoch=1)
+        state = sv_train.init_sv_train_state(model, cfg, seed=3, device=cuda,
+                                             mesh=mesh)
+        step = sv_train.make_sv_train_step(
+            model, cfg, mesh=mesh,
+            feature_fn=KaldiFbank(FbankConfig(), mean_norm=True, device=cuda))
+        rng = np.random.default_rng(3)
+        launches = fk.fbank_features.launches
+        metrics = []
+        for _ in range(2):
+            batch = {"wavs": torch.from_numpy(np.clip(np.rint(
+                rng.standard_normal((16, 48000)) * 3000), -32768,
+                32767).astype(np.int16)).to(cuda),
+                "labels": torch.from_numpy(rng.integers(0, 24, 16)).to(cuda)}
+            metrics.append({k: float(v) for k, v in
+                            step(state, batch).items()})
+        torch.cuda.synchronize()
+        return (metrics, sv_train.state_tree(state),
+                fk.fbank_features.launches - launches)
+
+    want_m, want, want_n = run(None)
+    got_m, got, got_n = run(mesh_1)
+    assert got_n == want_n == 2
+    for g, w in zip(got_m, want_m):
+        assert g == pytest.approx(w, rel=1e-6, abs=1e-6)
+    moved = 0.0
+    for k, v in want["model"].items():
+        np.testing.assert_allclose(got["model"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["cls_w"], want["cls_w"], rtol=0, atol=1e-5)
+    for k, v in want["momentum"]["model"].items():
+        moved = max(moved, float(np.abs(v).max()))
+        np.testing.assert_allclose(got["momentum"]["model"][k], v, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(v).max())),
+                                   err_msg=k)
+    assert moved > 1e-3  # the steps computed gradients worth comparing
+
+
+def test_world_1_sharded_embedding_launches_both_kernels(cuda, nccl_world_1):
+    from speaker3d_tpu_torch.eval.embedding import build_sharded_embedding_fn
+
+    model = _randomize(ERes2NetV2(num_blocks=(2, 2, 1, 1), m_channels=16), 0)
+    wavs = torch.from_numpy((np.random.default_rng(4).standard_normal(
+        (4, 24000)) * 0.1).astype(np.float32))
+    want = build_embedding_fn(model, device=cuda, precision="high")(wavs)
+    embed = build_sharded_embedding_fn(model, None, nccl_world_1,
+                                       precision="high")
+    k1, k2 = fk.fbank_features.launches, rk.res2_block.launches
+    got = embed(wavs)
+    torch.cuda.synchronize()
+    assert fk.fbank_features.launches == k1 + 1
+    assert rk.res2_block.launches == k2 + 4
+    assert got.device.type == "cuda" and got.shape == (4, 192)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_world_1_mesh_affinity_matches_the_product(cuda, nccl_world_1):
+    from speaker3d_tpu_torch.eval.scoring import pairwise_cosine_device
+
+    emb = np.random.default_rng(5).standard_normal((301, 192)).astype(
+        np.float32)
+    want = pairwise_cosine_device(emb, device=cuda)
+    got = pairwise_cosine_device(emb, mesh=nccl_world_1)
+    assert got.shape == (301, 301)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        got, pairwise_cosine_device(emb, device="cpu"), rtol=0, atol=1e-5)

@@ -10,6 +10,7 @@ from speaker3d_tpu.utils import wire as jwire
 from speaker3d_tpu_torch.diar import vad as tvad
 from speaker3d_tpu_torch.utils import fileio as tio
 from speaker3d_tpu_torch.utils import wire as twire
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 

@@ -2,10 +2,12 @@
 
 - Every module of ``speaker3d_tpu_torch`` imports in a fresh interpreter in
   which ``jax`` and ``speaker3d_tpu`` cannot be imported.
-- No module, and not ``chip_smoke.py``, names ``jax``/``flax``,
+- No module, and not ``chip_smoke.py`` nor the mesh tests' rank entry
+  module ``tests/torch_mesh_worker.py``, names ``jax``/``flax``,
   ``speaker3d_tpu`` or ``sklearn`` in an import (AST scan), so no later
   slice reaches for the JAX package or for scikit-learn, which the card's
-  machine lacks.
+  machine lacks. The rank entry module also imports in a fresh
+  interpreter with them blocked.
 - Every module also imports with ``cv2`` blocked, and ``cv2`` is imported
   only inside the functions that read video frames, images or ONNX models
   (the video CLI's ``read_frames`` and two ONNX builders, the face
@@ -32,6 +34,7 @@ import pytest
 import torch
 
 import speaker3d_tpu_torch
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 PKG_DIR = os.path.dirname(speaker3d_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
@@ -99,7 +102,7 @@ def test_package_has_the_slice_modules():
                  "compat.funasr_convert", "semantic.bert",
                  "data.semantic_prep", "cli.semantic",
                  "cli.export_speaker_embedding", "runtime_bridge",
-                 "runtime.build"):
+                 "runtime.build", "parallel.mesh"):
         assert f"speaker3d_tpu_torch.{name}" in mods, name
 
 
@@ -123,12 +126,31 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_mesh_worker_imports_without_jax():
+    """The entry module of the mesh tests' ranks, and the modules its
+    scenarios reach."""
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import tests.torch_mesh_worker\n"
+        "import speaker3d_tpu_torch.eval.embedding, "
+        "speaker3d_tpu_torch.eval.scoring, speaker3d_tpu_torch.train.sv_train\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG_DIR):
         for fn in files:
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tests", "torch_mesh_worker.py")
 
 
 def test_no_jax_imports_in_source():

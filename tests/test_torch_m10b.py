@@ -30,6 +30,7 @@ from speaker3d_tpu_torch.models.res2net import Res2Net
 from speaker3d_tpu_torch.models.resnet import ResNet
 from speaker3d_tpu_torch.models.xvector import Xvector
 from tests.test_torch_eres2netv2 import assert_close_scaled
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 TOL = 3e-4
 BACKBONES = {

@@ -11,6 +11,7 @@ import torch
 
 from speaker3d_tpu.ops import melspec as jmel
 from speaker3d_tpu_torch.ops import melspec
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_mels": 64}, {"sample_rate": 8000,

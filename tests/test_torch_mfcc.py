@@ -11,6 +11,7 @@ from hypothesis import strategies as st
 
 from speaker3d_tpu.ops import mfcc as jmfcc
 from speaker3d_tpu_torch.ops import mfcc as tmfcc
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _signal(n: int, seed: int) -> np.ndarray:

@@ -35,6 +35,7 @@ from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 from speaker3d_tpu_torch.runtime import build as runtime_build
 from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
 from speaker3d_tpu_torch.utils.fileio import load_audio, read_wav, write_wav
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_blocks=[1, 1, 1, 1], m_channels=8, feat_dim=80,

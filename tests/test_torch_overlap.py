@@ -8,6 +8,7 @@ from hypothesis import strategies as st
 
 from speaker3d_tpu.diar import overlap as jov
 from speaker3d_tpu_torch.diar import overlap as tov
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 

@@ -24,6 +24,7 @@ from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
 from speaker3d_tpu_torch.utils.fileio import write_wav
 from tests.test_diar_pipeline import _two_speaker_wav
 from tests.test_torch_eres2netv2 import jax_variables, port_model
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 MODEL_ID = "iic/speech_eres2netv2w24s4ep4_sv_zh-cn_16k-common"

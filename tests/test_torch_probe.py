@@ -16,6 +16,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from speaker3d_tpu_torch.tools import probe_ops
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

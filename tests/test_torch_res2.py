@@ -17,6 +17,7 @@ from speaker3d_tpu.ops.pallas.res2_block_kernel import (
     fold_res2_block as jax_fold, fused_res2_apply_fn, res2_block_fused)
 from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 from tests.test_torch_eres2netv2 import jax_variables, port_model
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _bn(rng, n):

@@ -21,6 +21,7 @@ from speaker3d_tpu_torch.models.common import relu20
 from speaker3d_tpu_torch.ops.kernels import res2_block_kernel as rk
 from speaker3d_tpu_torch.ops.kernels import tf32
 from tests.test_torch_res2 import _block_weights
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _kmajor(k):  # OIHW -> [(kh*KW + kw)*I + i, O], the kernel's K order

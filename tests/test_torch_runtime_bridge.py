@@ -20,6 +20,7 @@ from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
 from speaker3d_tpu_torch.utils.checkpoint import Checkpointer
 from speaker3d_tpu_torch.utils.fileio import load_audio, write_wav
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 MODEL_ID = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
 SMALL = dict(num_blocks=[1, 1, 1, 1], m_channels=8, feat_dim=80,

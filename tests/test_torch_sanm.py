@@ -24,6 +24,7 @@ from speaker3d_tpu_torch.compat.flax_convert import (
     flax_from_state_dict, state_dict_from_flax)
 from speaker3d_tpu_torch.data.processor_para import apply_lfr_device as t_lfr
 from speaker3d_tpu_torch.models import sanm as tsanm
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -26,6 +26,7 @@ from speaker3d_tpu_torch.semantic import bert as tbert
 from tests.semantic_common import (
     TASKS, TINY, batch, jax_logits, jax_models as build_jax_models, port,
     torch_batch)
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 LOGIT_TOL = 1e-5
 EMBED = ("word_embeddings", "position_embeddings", "token_type_embeddings")

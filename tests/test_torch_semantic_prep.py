@@ -21,6 +21,7 @@ from speaker3d_tpu.data import semantic_prep as jprep
 from speaker3d_tpu.utils import fileio as jfileio
 from speaker3d_tpu_torch.data import semantic_prep as tprep
 from speaker3d_tpu_torch.utils import fileio as tfileio
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 HAND = '''File type = "ooTextFile"
 Object class = "TextGrid"

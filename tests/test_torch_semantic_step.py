@@ -21,6 +21,7 @@ from speaker3d_tpu_torch.semantic import bert as tbert
 from speaker3d_tpu_torch.train.vad_train import init_adam_train_state
 from tests.semantic_common import (
     TASKS, batch, jax_models as build_jax_models, port, torch_batch)
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 TOL = 1e-4
 # a schedule whose first three steps warm up and decay: lr 2.5e-3, 5e-3, 5e-3

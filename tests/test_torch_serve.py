@@ -41,6 +41,7 @@ from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
 from speaker3d_tpu_torch.serve import EmbeddingServer, request_embedding, serve
 from speaker3d_tpu_torch.utils.fileio import write_wav
 from tests.test_torch_eres2netv2 import jax_variables, port_model
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -22,6 +22,7 @@ from speaker3d_tpu.diar import cluster as jcluster
 from speaker3d_tpu_torch.diar import cluster as tcluster
 from speaker3d_tpu_torch.diar.kmeans import k_means
 from tests.test_cluster import _blobs, _purity
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _partition(labels):

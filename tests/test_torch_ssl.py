@@ -52,6 +52,7 @@ from speaker3d_tpu_torch.models import ssl_heads
 from speaker3d_tpu_torch.ops.melspec import MelSpecConfig, MelSpectrogram
 from speaker3d_tpu_torch.train import ssl_train
 from speaker3d_tpu_torch.utils.threads import cpu_threads
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 ECAPA = dict(input_size=80, lin_neurons=32, channels=(16, 16, 16, 16, 48),
              res2net_scale=4, ssl_input_norm=True)

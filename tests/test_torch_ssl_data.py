@@ -16,6 +16,7 @@ import pytest
 from speaker3d_tpu.data import dataset_ssl as jds
 from speaker3d_tpu_torch.data import dataset_ssl as pds
 from speaker3d_tpu_torch.utils.fileio import write_wav
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 MAX_FRAMES = 50       # 0.5 s globals, 0.25 s locals

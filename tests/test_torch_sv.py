@@ -26,6 +26,7 @@ from speaker3d_tpu_torch.parallel import mesh
 from speaker3d_tpu_torch.utils import fileio as tfileio
 from speaker3d_tpu_torch.utils import kaldi_ark as tark
 from speaker3d_tpu_torch.utils import metrics as tmetrics
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 @settings(max_examples=200, deadline=None)
@@ -212,8 +213,10 @@ def test_pairwise_cosine_on_the_cpu_equals_jax():
     want = np.asarray(jscoring.pairwise_cosine_device(emb))
     assert got.shape == (37, 37) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="M14"):
-        tscoring.pairwise_cosine_device(emb, mesh=object(), device="cpu")
+    # a mesh of one process (no process group) gives the same product
+    one = mesh.make_mesh(device="cpu")
+    np.testing.assert_array_equal(
+        tscoring.pairwise_cosine_device(emb, mesh=one), got)
 
 
 @pytest.mark.parametrize("store", ["npz_dir", "ark_dir/embedding_0.scp",

@@ -32,6 +32,7 @@ from speaker3d_tpu_torch.eval.embedding import build_embedding_fn
 from speaker3d_tpu_torch.eval.scoring import load_embeddings
 from speaker3d_tpu_torch.utils.fileio import load_audio, load_wav_scp, write_wav
 from tests.test_torch_eres2netv2 import jax_variables, port_model
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 MODEL_ID = "iic/speech_eres2netv2_sv_zh-cn_16k-common"
 SMALL_17M = dict(num_blocks=(2, 2, 1, 1), m_channels=16, feat_dim=80,

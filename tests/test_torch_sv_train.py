@@ -31,10 +31,11 @@ from speaker3d_tpu_torch.compat.flax_convert import state_dict_from_flax
 from speaker3d_tpu_torch.models.campplus import CAMPPlus
 from speaker3d_tpu_torch.models.eres2netv2 import ERes2NetV2
 from speaker3d_tpu_torch.ops.fbank import FbankConfig, KaldiFbank
+from speaker3d_tpu_torch.parallel.mesh import make_mesh as make_port_mesh
 from speaker3d_tpu_torch.train import sv_train as tsv
 from speaker3d_tpu_torch.utils.threads import cpu_threads
 from tests.test_torch_eres2netv2 import jax_variables
-from tests.torch_threads import worker_threads
+from tests.torch_threads import cap_torch_threads, worker_threads  # noqa: F401
 
 SMALL = dict(num_blocks=(1, 1, 1, 1), m_channels=8, feat_dim=80,
              embedding_size=32)
@@ -258,8 +259,11 @@ def test_unported_options_are_refused():
     # dtype is refused
     with pytest.raises(ValueError, match="float16"):
         tsv.make_sv_train_step(model, cfg._replace(compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="M14"):
-        tsv.make_sv_train_step(model, cfg, model_parallel=2)
+    # the classes split over two shards need two ranks: one process is a
+    # world of one
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
+        tsv.make_sv_train_step(model, cfg, mesh=make_port_mesh(
+            1, 2, device="cpu"))
     # remat runs on every backbone (tests/test_torch_remat.py): CAM++ takes
     # it as its memory_efficient field
     from speaker3d_tpu_torch.models.campplus import CAMPPlus

@@ -30,6 +30,7 @@ from speaker3d_tpu_torch.cli import (
     infer_diarization as t_diar, infer_sv_batch as t_batch,
     serve_embedding as t_serve, train as t_train)
 from speaker3d_tpu_torch.utils.fileio import write_wav
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 

@@ -23,6 +23,7 @@ from speaker3d_tpu_torch.data import processors as tproc
 from speaker3d_tpu_torch.data import resample as tres
 from speaker3d_tpu_torch.data.prefetch import device_prefetch
 from speaker3d_tpu_torch.utils.fileio import write_wav
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 FS = 16000
 
@@ -162,6 +163,29 @@ def test_batch_loader_byte_equal_to_jax_over_two_epochs(corpus, monkeypatch,
             n += 1
     assert n == 6
     assert got["wavs"].dtype == (np.int16 if wire else np.float32)
+
+
+def test_batch_loader_process_shares_byte_equal_to_jax(corpus, monkeypatch):
+    """Each of five processes' share of the 12 utterances (the order taken
+    round-robin, every share cut to 12 // 5 = 2 so that no process yields
+    a batch more than another), through both packages' loaders."""
+    root, _ = corpus
+    monkeypatch.setattr(jres, "_native_lib", lambda: None)
+    seen = []
+    for index in range(5):
+        t_loader, j_loader = _loaders(root, 7, True, "int16")
+        for loader in (t_loader, j_loader):
+            loader.batch_size, loader.process_count = 2, 5
+            loader.process_index = index
+        assert len(t_loader) == len(j_loader) == 1
+        random.seed(7)
+        t_loader.set_epoch(3)
+        j_loader.set_epoch(3)
+        for got, want in zip(t_loader, j_loader, strict=True):
+            for k in want:
+                assert got[k].tobytes() == want[k].tobytes(), (index, k)
+            seen.append(got["wavs"].tobytes())
+    assert len(set(seen)) == 5
 
 
 def test_batch_loader_raises_a_worker_error(corpus, tmp_path):

@@ -380,7 +380,9 @@ def test_each_cli_resumes_the_others_experiment(experiments, resumer,
 
 
 def test_model_parallel_is_refused(setup):
+    """In one process: two class shards need two ranks (torchrun runs it,
+    ``tests/test_torch_sv_train_sharded.py`` holds the mesh step)."""
     root, config, _, _ = setup
     path, _ = _write_config(root, "exp_mp", dict(config, model_parallel=2))
-    with pytest.raises(NotImplementedError, match="M14"):
+    with pytest.raises(ValueError, match="has 1 devices, needs 2"):
         ttp.main(["--config", path, "--device", "cpu"])

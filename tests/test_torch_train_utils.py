@@ -29,6 +29,7 @@ from speaker3d_tpu_torch.utils import config as tcfg
 from speaker3d_tpu_torch.utils import misc as tmisc
 from speaker3d_tpu_torch.utils import preemption as tpre
 from speaker3d_tpu_torch.utils.profiling import StepTracer
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OVERRIDES = ["--exp_dir=exp/x", "--num_epoch", "1", "--remat=true",
@@ -282,8 +283,11 @@ def test_margin_losses_equal_jax(margin, easy):
 
 
 def test_sharded_loss_refuses_a_second_shard():
+    """... without the model axis's process group, which joins the shards
+    (``tests/test_torch_sv_train_sharded.py``)."""
     cos, labels = _cosines(0)
-    with pytest.raises(NotImplementedError, match="M14"):
+    with pytest.raises(ValueError, match="needs the model axis's process "
+                                         "group"):
         tl.sharded_arc_margin_loss(torch.from_numpy(cos),
                                    torch.from_numpy(labels), 5, 0.2)
 

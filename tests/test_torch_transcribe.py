@@ -19,6 +19,7 @@ from speaker3d_tpu.diar import transcribe as jt
 from speaker3d_tpu_torch.cli import transcribe_diarization as tcli
 from speaker3d_tpu_torch.diar import transcribe as tt
 from tests.test_transcribe import ASR, FIELDS
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 ASR_MS = dict(ASR, timestamp=[[a * 1000, b * 1000] for a, b in
                               ASR["timestamp"]])

@@ -24,6 +24,7 @@ from speaker3d_tpu_torch.diar import cluster as tcluster
 from speaker3d_tpu_torch.diar import hdbscan_native as thdb
 from speaker3d_tpu_torch.diar import umap_native as tumap
 from tests.test_umap_hdbscan import _blobs, _purity
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def _partition(labels):

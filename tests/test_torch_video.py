@@ -22,6 +22,7 @@ from speaker3d_tpu_torch.cli import infer_diarization_video as tcli
 from speaker3d_tpu_torch.diar import cluster as tcluster
 from speaker3d_tpu_torch.diar import video as tvideo
 from speaker3d_tpu_torch.ops.mfcc import mfcc
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 
 def test_resize_and_sharpness_bit_equal():
